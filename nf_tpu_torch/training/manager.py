@@ -1,0 +1,472 @@
+"""Managers: model factory + variance-loss trainer + MC integrator.
+
+Counterpart of ``nf_tpu.training.manager`` (reference
+normalizing_flows/manager.py).  The model is a :class:`FlowModel` trained by
+torch autograd; the best-model snapshot is a deep copy of it, taken after the
+optimizer step (reference quirk, manager.py:280,297).  Loss-mode semantics,
+preburn, ``maxf`` normalization, the early-stop state machine, the tail
+integration and the inverse-variance combination replicate nf_tpu, which
+replicates the reference.  Variances are *unbiased* throughout (torch.var).
+
+The trainer runs at the per-epoch cadence (nf_tpu's ``epochs_per_sync=1``):
+one host sync per epoch, for the scalars the state machine needs.
+
+Not ported yet, and refused with ``NotImplementedError``: ``mesh``,
+``resume_from``, ``pathwise``, ``bn_stats="stale"``, ``select_best_by="ess"``,
+``epochs_per_sync`` other than 1, ``logdir`` / ``run`` logging and
+checkpoints, and ``integrate(method="qmc")``.
+"""
+
+from __future__ import annotations
+
+import copy
+import math
+import time
+
+import numpy as np
+import torch
+
+from nf_tpu_torch.flows import factory
+from nf_tpu_torch.flows import sampling as fsampling
+
+
+def _not_ported(name, value):
+    raise NotImplementedError(f"{name}={value!r} is not ported to nf_tpu_torch yet")
+
+
+def epoch_step(model, optimizer, f, ws, preburn: bool, maxf, loss_mode: str):
+    """One training epoch on the minibatches of latents ``ws``: the loss
+    gradients of all minibatches, averaged, then one optimizer step.
+
+    Returns a tensor ``[loss, var, integ, err]`` (still on the device).
+    Counterpart of the epoch body of nf_tpu's trainer with
+    ``bn_stats="batch"`` (training/manager.py:466-564).
+    """
+    mb = ws[0].shape[0]
+    optimizer.zero_grad(set_to_none=True)
+    ls, iis, eis, vis = [], [], [], []
+    for w in ws:
+        x, jacv = model(w, True)
+        if preburn:
+            # loss on LATENT points: flattens J against f before the map
+            # moves (reference manager.py:237-242)
+            fres = f(w)
+            fXJ = fres * jacv / maxf
+        else:
+            # the sample is detached: the gradient flows through J only
+            fres = f(x.detach()) * jacv
+            fXJ = fres / maxf
+        if loss_mode == "var" or (loss_mode == "kl" and preburn):
+            # kl mode keeps the variance loss during preburn: KL losses are
+            # negative, which would confuse the ratio-based preburn exit
+            loss = torch.var(fXJ)
+        elif loss_mode == "kl":
+            # reweighted forward KL: -E_w[w_tilde log q(x)], log q = -log J
+            loss = torch.mean(fXJ.detach() * torch.log(torch.clamp_min(jacv, 1e-30)))
+        else:
+            loss = torch.mean((fXJ * maxf) ** 2)
+        loss.backward()
+        fres, fXJ = fres.detach(), fXJ.detach()
+        ls.append(loss.detach())
+        iis.append(torch.mean(fres))
+        eis.append(torch.var(fres))
+        vis.append(torch.var(fXJ ** 2) / mb)
+    with torch.no_grad():
+        for p in model.parameters():
+            if p.grad is not None:
+                p.grad.div_(len(ws))
+    optimizer.step()
+    optimizer.zero_grad(set_to_none=True)
+    return torch.stack([torch.mean(torch.stack(ls)), torch.sum(torch.stack(vis)),
+                        torch.mean(torch.stack(iis)), torch.mean(torch.stack(eis))])
+
+
+def combine_iterations(means, variances, neval: int, nitn: int, combine: str):
+    """Combine per-iteration means/variances (tensors ``[nitn]``) into
+    ``(sig, sig_err)`` tensors.  ``"iw"``: the reference's inverse-variance
+    weighting; ``"mean"``: the plain mean with the pooled standard error."""
+    if combine == "mean":
+        return torch.mean(means), torch.sqrt(torch.mean(variances) / (neval * nitn))
+    if combine == "iw":
+        sig = torch.sum(means / variances) / torch.sum(1.0 / variances)
+        return sig, torch.sqrt(1.0 / torch.sum(1.0 / variances)) / math.sqrt(neval * nitn)
+    raise ValueError(f"unknown combine {combine!r}; expected 'iw' or 'mean'")
+
+
+class BasicManager:
+    """Training and integration engine (reference manager.py:52-405).
+
+    ``device`` is where the model, the latents and the generator live
+    (``"cpu"`` or ``"cuda"``); ``dtype`` is the model's float type.
+    """
+
+    def __init__(self, n_flow=2, seed=0, dtype=torch.float32, device="cpu"):
+        self.n_flow = n_flow
+        self.dtype = dtype
+        self.device = torch.device(device)
+        self._gen = torch.Generator(device=self.device).manual_seed(seed)
+        self._flow = None
+        self._model = None
+        self.best_model = None
+        self.best_loss = None
+        self.best_eval_mode = False      # see the tail integration below
+
+    @property
+    def model(self):
+        if self._flow is not None:
+            return self._flow
+        raise AttributeError("No model was instantiated")
+
+    def _uniform(self, shape):
+        return torch.rand(shape, generator=self._gen, dtype=self.dtype,
+                          device=self.device)
+
+    def _generator(self, seed):
+        if seed is None:
+            return self._gen
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def _resolve_method(self, method, train):
+        """``None`` / ``'auto'``: the fused kernel wherever
+        :func:`~nf_tpu_torch.flows.sampling.default_method` picks it (a CUDA
+        device, train mode not asked for); elsewhere the reference-parity
+        stateful forward.  ``'stateful'`` is an alias of ``'reference'``."""
+        if method in (None, "auto"):
+            if fsampling.default_method(self._flow, self.device, train is True) == "fused":
+                return "fused"
+            return "reference"
+        if method == "stateful":
+            return "reference"
+        if method not in ("fused", "folded", "reference"):
+            raise ValueError(
+                f"unknown sampling method {method!r}; expected one of "
+                "None/'auto', 'fused', 'folded', 'reference'/'stateful'")
+        return method
+
+    def sample(self, n, seed=None, model=None, train=None, method=None,
+               mesh=None):
+        """Draw ``n`` latent points and map them: returns ``(x, jac)``.
+
+        ``train=None`` follows the reference best-model mode: batch-stats
+        BatchNorm unless a tail-integration phase flipped the best model to
+        eval.  ``model`` defaults to the best model; ``seed`` to the
+        manager's generator.
+        """
+        if mesh is not None:
+            _not_ported("mesh", mesh)
+        model = self.best_model if model is None else model
+        method = self._resolve_method(method, train)
+        if method == "reference":
+            method = "stateful"
+            train = (not self.best_eval_mode) if train is None else train
+        fn = fsampling.make_sampler(self._flow, model, n, method,
+                                    train=bool(train), dtype=self.dtype)
+        return fn(self._generator(seed))
+
+    # -- the trainer (reference manager.py:66-378) --------------------------
+
+    def _train_variance_forward_seq(self, f, optimizer_object, log=True,
+                                    logdir=None, batch_size=10000, epochs=10,
+                                    epoch_start=0, pretty_progressbar=True,
+                                    save_best=True, run=None,
+                                    mini_batch_size=2000, integrate=False,
+                                    preburn_time=75, kill_counter=7,
+                                    impr_ratio=1e-2, loss_mode="var",
+                                    seed=None, mesh=None, pathwise=False,
+                                    epochs_per_sync=1, select_best_by="loss",
+                                    resume_from=None, progress_callback=None,
+                                    bn_stats="batch"):
+        """Train with the integrand variance as loss; the Jacobian comes from
+        the forward pass and the gradient flows through it only.
+
+        ``f(x: [B, n_flow]) -> [B]`` takes and returns tensors.
+        ``optimizer_object`` is a factory ``make(params)`` such as
+        :func:`nf_tpu_torch.training.optimizers.adamax`.  Returns
+        ``(integral, error)`` when ``integrate`` else ``(0, 0)``.
+        """
+        for name, value, ported in (
+                ("mesh", mesh, mesh is None),
+                ("resume_from", resume_from, resume_from is None),
+                ("pathwise", pathwise, not pathwise),
+                ("bn_stats", bn_stats, bn_stats != "stale"),
+                ("select_best_by", select_best_by, select_best_by != "ess"),
+                ("epochs_per_sync", epochs_per_sync, epochs_per_sync == 1),
+                ("logdir", logdir, logdir is None),
+                ("run", run, run is None)):
+            if not ported:
+                _not_ported(name, value)
+        if bn_stats != "batch":
+            raise ValueError(f"unknown bn_stats {bn_stats!r}")
+        if loss_mode not in ("var", "est", "kl"):
+            print("Unknown loss function")
+            return
+        if seed is not None:
+            self._gen.manual_seed(seed)
+
+        model = self._model
+        n_flow = self.n_flow
+
+        check_time = preburn_time if preburn_time > 10 else 50
+        mini_batch_size = min(mini_batch_size, batch_size)
+        n_minibatches = int(batch_size / mini_batch_size)
+        batch_size = batch_size - (batch_size % mini_batch_size)
+
+        epoch_offset = epoch_start
+        integ = np.zeros(epochs + 1)
+        err = np.zeros(epochs + 1)
+
+        # ---- PHASE A: initial estimate on raw uniform points
+        # (reference manager.py:139-167)
+        with torch.no_grad():
+            zero = torch.zeros((), dtype=self.dtype, device=self.device)
+            maxf, best_loss, best_var, integ0, err0 = zero, zero, zero, zero, zero
+            for _ in range(n_flow):
+                w = self._uniform((2 * mini_batch_size, n_flow))
+                fres = f(w)
+                integ0 = integ0 + torch.sum(fres) / (n_flow * 2 * mini_batch_size)
+                err0 = err0 + torch.var(fres) / n_flow
+                maxf = torch.maximum(maxf, torch.max(fres))
+                if loss_mode == "var":
+                    best_loss = best_loss + torch.var(fres / maxf) / n_flow
+                else:
+                    best_loss = best_loss + torch.mean(fres ** 2) / n_flow
+                best_var = best_var + torch.var((fres / maxf) ** 2) / 2 * mini_batch_size
+            integ[0], err[0], self.best_loss, self.best_var = \
+                torch.stack([integ0, err0, best_loss, best_var]).tolist()
+
+            # ---- diagnostics + initial best-model snapshot
+            # (reference manager.py:170-196); moves the BN buffers
+            if save_best or log:
+                x, jacv = model(w, True)
+                self.varJ = float(torch.mean(jacv ** 2))
+                # torch KLDivLoss default 'mean' divides by numel = B * n_flow
+                self.DKL = float(torch.sum(w * (torch.log(w) - torch.log(x + 1e-45)))
+                                 / w.numel())
+                self.best_model = copy.deepcopy(model)
+                self.best_epoch = 0
+                self.best_time = 0
+                self.best_loss_rel = 1.0
+                self.best_func_count = 2 * batch_size * n_flow
+                self.history = []
+        self.int_loss = self.best_loss
+
+        optimizer = optimizer_object(model.parameters())
+
+        # ---- host-side epoch loop with the early-stop state machine
+        # (reference manager.py:212-327)
+        sm = {"stale_save": 1000.0, "preburner": preburn_time > 0,
+              "counter": 0, "last_loss": 1000.0}
+        t_start = time.time()
+        epochs_end = epoch_start + epochs
+
+        pbar = None
+        if pretty_progressbar:
+            try:
+                from tqdm.auto import tqdm
+                pbar = tqdm(total=epochs, leave=False,
+                            desc="Loss: {0:.3e} | Epoch".format(0.0))
+            except ImportError:
+                pass
+
+        def process_epoch(i, loss, var_val, integ_e, err_e):
+            """Host state machine for one finished epoch (reference
+            manager.py:282-327).  Returns True to stop training."""
+            integ[i - epoch_offset + 1] += integ_e
+            err[i - epoch_offset + 1] += err_e
+            if save_best or log:
+                self.history.append(loss)
+                self.best_func_count += batch_size
+            if pbar is not None:
+                pbar.set_description("Loss: {0:.3e} | Epoch".format(loss))
+                pbar.update(1)
+            if progress_callback is not None:
+                done = i - epoch_start + 1
+                elapsed = time.time() - t_start
+                progress_callback({
+                    "epoch": i, "epochs": epochs, "loss": loss,
+                    "elapsed_s": elapsed,
+                    "eta_s": elapsed / max(done, 1) * (epochs - done),
+                })
+
+            if (save_best or log) and loss < self.best_loss and not sm["preburner"]:
+                self.best_loss = loss
+                self.best_var = var_val
+                self.best_loss_rel = loss / self.int_loss
+                # post-update snapshot (reference manager.py:280,297)
+                self.best_model = copy.deepcopy(model)
+                self.best_epoch = i
+                self.best_time = time.time() - t_start
+
+            if loss < sm["last_loss"]:
+                sm["counter"] = 0
+            else:
+                sm["counter"] += 1
+                if sm["counter"] > kill_counter and sm["preburner"]:
+                    sm["counter"] = 0
+                    sm["preburner"] = False
+                elif sm["counter"] > kill_counter:
+                    return True
+            sm["last_loss"] = loss
+            if (i % check_time == 0) and i > (preburn_time + 1) and \
+                    loss_mode != "kl" and \
+                    float(self.best_loss) / sm["stale_save"] > (1 - impr_ratio) \
+                    and not sm["preburner"]:
+                # (ratio-based staleness is meaningless for the negative KL
+                # loss; kl mode stops via kill_counter/epochs instead)
+                return True
+            elif i % check_time == 0 and not sm["preburner"] and \
+                    (self.best_loss < self.int_loss or i > 300):
+                sm["stale_save"] = float(self.best_loss)
+            if sm["preburner"] and ((loss < 0.25 * self.best_loss) or i > preburn_time):
+                sm["preburner"] = False
+            return False
+
+        i = epoch_start - 1
+        for i in range(epoch_start, epochs_end):
+            ws = [self._uniform((mini_batch_size, n_flow)) for _ in range(n_minibatches)]
+            stats = epoch_step(model, optimizer, f, ws, sm["preburner"], maxf, loss_mode)
+            loss, var_val, integ_e, err_e = stats.tolist()  # the epoch's sync
+            if process_epoch(i, loss, var_val, integ_e, err_e):
+                break
+
+        if pbar is not None:
+            pbar.close()
+        self._last_epoch = i
+
+        # ---- PHASE C: tail integration with the best model in eval mode
+        # (reference manager.py:332-346; note the reference's asymmetric
+        # integ/sqrt(mini_batch) + std scaling, replicated exactly)
+        endpoint = i - epoch_offset + 1   # epochs actually run
+        total = epochs_end - epoch_offset
+        if integrate and endpoint < total - 1:
+            best = self.best_model
+            self.best_eval_mode = True    # reference flips best_model to eval
+            with torch.no_grad():
+                for s in range(endpoint, total):
+                    means, stds = [], []
+                    for _ in range(n_minibatches):
+                        x, jacv = best(self._uniform((mini_batch_size, n_flow)), False)
+                        fres = f(x) * jacv
+                        means.append(torch.mean(fres))
+                        stds.append(torch.std(fres))
+                    ie = torch.mean(torch.stack(means)) / math.sqrt(mini_batch_size)
+                    ee = torch.mean(torch.stack(stds))
+                    ie, ee = torch.stack([ie, ee]).tolist()
+                    integ[s + 1] += ie
+                    err[s + 1] += ee
+                    self.best_func_count += batch_size
+
+        # ---- inverse-variance-weighted combination (reference
+        # manager.py:349-350).  Entries with err == 0 (epochs that never
+        # ran) are excluded: the reference would produce NaN there.
+        mask = err > 0
+        self.integ_tot = float(np.sum(integ[mask] / err[mask]) / np.sum(1.0 / err[mask]))
+        self.err_tot = float(np.sqrt(1.0 / np.sum(1.0 / err[mask])))
+        self._integ_hist = integ
+        self._err_hist = err
+
+        if integrate:
+            return (self.integ_tot, self.err_tot)
+        return (0, 0)
+
+    # -- post-training integrator (reference manager.py:380-405) ------------
+
+    def integrate(self, f, nitn, neval, seed=None, combine="iw", method=None,
+                  mesh=None):
+        """Post-training MC estimate: ``nitn`` iterations of ``neval``
+        samples from the best model, combined by ``combine`` ("iw": the
+        reference's inverse-variance weighting; "mean": plain mean with the
+        pooled standard error).
+
+        On a CUDA device the default method is the fused kernel: one launch
+        per iteration, each with its own range of the Philox counter, the
+        integrand reading the kernel's dim-major output.  The per-iteration
+        means and variances stay on the device; the result is read once.
+        """
+        if self.best_model is None:
+            print("No model has been trained")
+            return (0, 0)
+        if mesh is not None:
+            _not_ported("mesh", mesh)
+        if method == "qmc":
+            _not_ported("method", method)
+        neval, nitn = int(neval), int(nitn)
+        method = self._resolve_method(method, None)
+        gen = self._generator(seed)
+        model = self.best_model
+        means, variances = [], []
+        with torch.no_grad():
+            if method == "fused":
+                from nf_tpu_torch.ops.pwquad_sampler import build_sampler
+                sampler = build_sampler(self._flow, model, layout="dim_major")
+                seed0 = fsampling.seed_from(gen)
+
+                def draw(i):
+                    x_dm, jacv = sampler(seed0, neval, offset=i * neval)
+                    return x_dm.T, jacv
+            else:
+                sampler = fsampling.make_sampler(
+                    self._flow, model, neval,
+                    "folded" if method == "folded" else "stateful",
+                    train=not self.best_eval_mode,   # reference never calls .eval()
+                    dtype=self.dtype)
+
+                def draw(i):
+                    return sampler(gen)
+            for i in range(nitn):
+                x, jacv = draw(i)
+                fres = f(x) * jacv
+                means.append(torch.mean(fres))
+                variances.append(torch.var(fres))
+            sig, sig_err = combine_iterations(torch.stack(means), torch.stack(variances),
+                                              neval, nitn, combine)
+            sig, sig_err = torch.stack([sig, sig_err]).tolist()
+        return (sig, sig_err)
+
+    # -- warm-up forward (reference manager.py:592-598) ----------------------
+
+    def _warmup(self, n=5):
+        with torch.no_grad():
+            self._model(self._uniform((n, self.n_flow)), True)
+
+    def _set_model(self, model, identity_init, n_warmup):
+        self._model = model
+        self._flow = model.flow
+        if identity_init:
+            factory.identity_init(model)
+        # the snapshot predates the warm-up's BN update, as in nf_tpu
+        self.best_model = copy.deepcopy(model)
+        self._warmup(n_warmup)
+
+
+class AffineManager(BasicManager):
+    """Affine coupling cells + roll layers (reference manager.py:411-453)."""
+
+    def create_model(self, n_pass_through, n_cells, NN, roll_step,
+                     identity_init=False):
+        self._set_model(factory.build_affine_flow(
+            self._gen, self.n_flow, n_pass_through, n_cells, tuple(NN),
+            roll_step, self.dtype, self.device), identity_init, 10)
+
+
+class PWLinManager(BasicManager):
+    """Piecewise-linear coupling cells + roll layers (reference manager.py:456-499)."""
+
+    def create_model(self, n_pass_through, n_cells, n_bins, NN, roll_step,
+                     identity_init=False, final_rank=None, activation="exp"):
+        self._set_model(factory.build_pwlin_flow(
+            self._gen, self.n_flow, n_pass_through, n_cells, n_bins, tuple(NN),
+            roll_step, self.dtype, self.device, final_rank=final_rank,
+            activation=activation), identity_init, 5)
+
+
+class PWQuadManager(BasicManager):
+    """Piecewise-quadratic cells; masked partition for n_flow > 7
+    (reference manager.py:502-600)."""
+
+    def create_model(self, n_cells, n_bins, NN, identity_init=False,
+                     final_rank=None, activation="exp"):
+        self._set_model(factory.build_pwquad_flow(
+            self._gen, self.n_flow, n_cells, n_bins, tuple(NN), self.dtype,
+            self.device, final_rank=final_rank, activation=activation),
+            identity_init, 5)
