@@ -1,13 +1,13 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-At first use, :func:`library` compiles every ``csrc/*.cu`` into one shared
-library with a plain C interface,
+At first use, :func:`library` compiles every ``csrc/*.cu`` (which include
+``csrc/flow_plan.cuh``) into one shared library with a plain C interface,
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/<hash>/libnf_tpu_torch_kernels.so csrc/*.cu
 
-where ``<hash>`` is a digest of the sources and flags, so an edited source
-builds anew.  The library is loaded with ``ctypes`` and every entry point's
+where ``<hash>`` is a digest of the sources, the header and the flags, so an
+edited source builds anew.  The library is loaded with ``ctypes`` and every entry point's
 ``argtypes`` / ``restype`` are declared here.  A missing nvcc or a failed
 build raises with nvcc's output.  Nothing is downloaded.
 """
@@ -63,7 +63,7 @@ def library() -> ctypes.CDLL:
         return _LIB
     sources = sorted(CSRC.glob("*.cu"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sorted(CSRC.glob("*.cu*")):
         digest.update(src.name.encode() + src.read_bytes())
     out = BUILD / digest.hexdigest()[:16] / LIB_NAME
     if not out.exists():
@@ -72,8 +72,13 @@ def library() -> ctypes.CDLL:
     p, i, i64, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint64
     lib.nf_pwquad_sampler.argtypes = [p, i, p, i, p, u64, u64, p, p, i64, i, p]
     lib.nf_pwquad_sampler.restype = i
-    lib.nf_pwquad_sampler_limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
-    lib.nf_pwquad_sampler_limits.restype = i
+    lib.nf_pwquad_train_fwd.argtypes = [p, i, p, i, p, p, p, p, p, i, i64, i, p]
+    lib.nf_pwquad_train_fwd.restype = i
+    lib.nf_pwquad_train_bwd.argtypes = [p, i, p, i, p, p, p, p, p, p, i64, i, p]
+    lib.nf_pwquad_train_bwd.restype = i
+    for limits in (lib.nf_pwquad_sampler_limits, lib.nf_pwquad_train_limits):
+        limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
+        limits.restype = i
     lib.nf_cuda_error_string.argtypes = [i]
     lib.nf_cuda_error_string.restype = ctypes.c_char_p
     _check_limits(lib)
@@ -83,12 +88,17 @@ def library() -> ctypes.CDLL:
 
 def _check_limits(lib):
     from nf_tpu_torch.ops import pwquad_sampler as ps
+    from nf_tpu_torch.ops import pwquad_train as pt
 
-    caps = (ctypes.c_int * 3)()
-    lib.nf_pwquad_sampler_limits(caps)
-    if tuple(caps) != (ps.MAX_FLOW, ps.MAX_HIDDEN, ps.MAX_BINS):
-        raise RuntimeError(f"kernel caps {tuple(caps)} != wrapper caps "
-                           f"{(ps.MAX_FLOW, ps.MAX_HIDDEN, ps.MAX_BINS)}")
+    sampler = (ps.MAX_FLOW, ps.MAX_HIDDEN, ps.MAX_BINS)
+    train = sampler + (pt.MAX_ACTS, pt.MAX_OPS, pt.TRAIN_BLOCK, pt.TRAIN_MAX_BLOCKS)
+    for fn, want in ((lib.nf_pwquad_sampler_limits, sampler),
+                     (lib.nf_pwquad_train_limits, train)):
+        caps = (ctypes.c_int * len(want))()
+        fn(caps)
+        if tuple(caps) != want:
+            raise RuntimeError(f"{fn.__name__}: kernel caps {tuple(caps)} != "
+                               f"wrapper caps {want}")
 
 
 def error_string(err: int) -> str:

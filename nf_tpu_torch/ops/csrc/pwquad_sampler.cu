@@ -6,7 +6,8 @@
 // cells; per cell the BatchNorm-folded conditioner MLP, then the per-dimension
 // transform) and writes x and the Jacobian product once.  The plain PyTorch
 // version is nf_tpu_torch/flows/fast_eval.py::make_folded_forward; the plan
-// encoding is nf_tpu_torch/ops/pwquad_sampler.py::encode_plan.
+// encoding is nf_tpu_torch/ops/pwquad_sampler.py::encode_plan.  The plan walk
+// and the per-kind maths live in flow_plan.cuh, shared with pwquad_train.cu.
 //
 // Design, for a first kernel that is simple and right:
 //   * one thread per sample, grid-stride loop, ragged tail masked by the loop
@@ -35,21 +36,12 @@
 // the kernel per plan to keep them in registers is the first lever for
 // later work.
 
-#include <cuda_runtime.h>
 #include <stdint.h>
 
-#define MAX_FLOW 32
-#define MAX_HIDDEN 64
-#define MAX_BINS 32
+#include "flow_plan.cuh"
+
 #define BLOCK 128
 #define MAX_BLOCKS 8192
-
-#define OP_PERM 0
-#define OP_CELL 1
-#define KIND_PWQUAD 0
-#define KIND_PWLIN 1
-#define KIND_AFFINE 2
-#define ACT_EXP 0
 
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 #pragma unroll
@@ -66,118 +58,6 @@ __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
 // top 24 bits -> [0, 1 - 2^-24]: never 1.0
 __device__ __forceinline__ float u01(unsigned bits) {
   return (float)(bits >> 8) * (1.0f / 16777216.0f);
-}
-
-__device__ __forceinline__ float positivity(float z, int act) {
-  return act == ACT_EXP ? expf(z) : 0.5f * (z + sqrtf(z * z + 4.0f));
-}
-
-// One output of the last (linear) layer: b[j] + sum_k h[k] W[k, j].
-__device__ __forceinline__ float last_logit(const float* __restrict__ W,
-                                            const int* L, const float* h,
-                                            int j) {
-  const int fan_in = L[0], fan_out = L[1];
-  const float* w = W + L[3];
-  float acc = W[L[4] + j];
-  for (int k = 0; k < fan_in; ++k) acc = fmaf(h[k], w[k * fan_out + j], acc);
-  return acc;
-}
-
-// Applies the cell whose descriptor starts at D[p] to xs; returns the index
-// just past it.
-__device__ int apply_cell(const int* D, int p, const float* __restrict__ W,
-                          float* xs, float& jac, int n_flow) {
-  const int kind = D[p + 1], pt = D[p + 2], nb = D[p + 3], act = D[p + 4];
-  const int n_layers = D[p + 5];
-  const int* L = D + p + 6;
-  float ha[MAX_HIDDEN], hb[MAX_HIDDEN];
-  float* h = ha;
-  float* o = hb;
-  for (int k = 0; k < pt; ++k) h[k] = xs[k];
-  // every layer but the last, in full
-  for (int l = 0; l < n_layers - 1; ++l, L += 5) {
-    const int fan_in = L[0], fan_out = L[1], relu = L[2];
-    const float* w = W + L[3];
-    const float* b = W + L[4];
-    for (int j = 0; j < fan_out; ++j) {
-      float acc = b[j];
-      for (int k = 0; k < fan_in; ++k) acc = fmaf(h[k], w[k * fan_out + j], acc);
-      o[j] = relu ? fmaxf(acc, 0.0f) : acc;
-    }
-    float* tmp = h;
-    h = o;
-    o = tmp;
-  }
-  // L now points at the last layer, streamed per transformed dimension
-  const int t = n_flow - pt;
-  if (kind == KIND_AFFINE) {
-    for (int ti = 0; ti < t; ++ti) {
-      const float s0 = expf(last_logit(W, L, h, ti));
-      const float s1 = fmaxf(last_logit(W, L, h, t + ti), 0.0f);
-      const float u = xs[pt + ti] * (20.0f * s0) + s1;
-      const float diff = 1.0f / (u * u + 1.0f);
-      xs[pt + ti] = atanf(u) / 1.57079632679489662f;
-      jac *= (20.0f * s0) * diff;
-    }
-    jac *= 0.636619772367581343f;  // 2/pi once per cell (reference quirk)
-  } else if (kind == KIND_PWQUAD) {
-    const int width = 2 * nb + 1;
-    float z[2 * MAX_BINS + 1];
-    for (int ti = 0; ti < t; ++ti) {
-      for (int j = 0; j < width; ++j) z[j] = last_logit(W, L, h, ti * width + j);
-      float* v = z;           // nb + 1 vertex heights
-      float* wd = z + nb + 1; // nb bin widths
-      float wtot = 0.0f;
-      for (int k = 0; k < nb; ++k) {
-        wd[k] = positivity(wd[k], act);
-        wtot += wd[k];
-      }
-      for (int k = 0; k < nb; ++k) wd[k] = wd[k] / wtot;
-      for (int k = 0; k <= nb; ++k) v[k] = positivity(v[k], act);
-      float vnorm = 0.0f;
-      for (int k = 0; k < nb; ++k) vnorm += (v[k] + v[k + 1]) * 0.5f * wd[k];
-      for (int k = 0; k <= nb; ++k) v[k] = v[k] / vnorm;
-      // stability clamp (reference coupling_cells.py:167)
-      const float xB = fminf(xs[pt + ti], 1.0f - 1e-6f);
-      // the bin: the last k whose left edge is <= xB (the last bin's upper
-      // bound is open)
-      float edge = 0.0f, vw = 0.0f;
-      float w_b = wd[0], edge_b = 0.0f, vw_b = 0.0f, v_lo = v[0], v_hi = v[1];
-      for (int k = 0; k < nb; ++k) {
-        const bool in = xB >= edge;
-        w_b = in ? wd[k] : w_b;
-        edge_b = in ? edge : edge_b;
-        vw_b = in ? vw : vw_b;
-        v_lo = in ? v[k] : v_lo;
-        v_hi = in ? v[k + 1] : v_hi;
-        vw += (v[k] + v[k + 1]) * 0.5f * wd[k];
-        edge += wd[k];
-      }
-      const float alpha = (xB - edge_b) / w_b;
-      xs[pt + ti] = 0.5f * alpha * alpha * (v_hi - v_lo) * w_b
-                    + alpha * v_lo * w_b + vw_b;
-      jac *= v_lo + (v_hi - v_lo) * alpha;
-    }
-  } else {  // KIND_PWLIN
-    float q[MAX_BINS];
-    for (int ti = 0; ti < t; ++ti) {
-      float qtot = 0.0f;
-      for (int k = 0; k < nb; ++k) {
-        q[k] = positivity(last_logit(W, L, h, ti * nb + k), act);
-        qtot += q[k];
-      }
-      const float a = xs[pt + ti] * (float)nb;
-      // clamp the bin before alpha: xB == 1.0 maps to the right edge
-      int bin = (int)floorf(a);
-      bin = bin < 0 ? 0 : (bin > nb - 1 ? nb - 1 : bin);
-      float below = 0.0f;
-      for (int k = 0; k < bin; ++k) below += q[k];
-      const float pdf = q[bin] / (qtot / (float)nb);
-      xs[pt + ti] = pdf * ((a - (float)bin) / (float)nb) + below / qtot;
-      jac *= pdf;
-    }
-  }
-  return p + 6 + 5 * n_layers;
 }
 
 __global__ void __launch_bounds__(BLOCK)
@@ -212,15 +92,14 @@ pwquad_sampler_kernel(const int* __restrict__ desc, int desc_len,
       }
     }
     float jac = 1.0f;
+    NoSink no_sink;
     int p = 2;
     for (int op = 0; op < n_ops; ++op) {
       if (D[p] == OP_PERM) {
-        float tmp[MAX_FLOW];
-        for (int d = 0; d < n_flow; ++d) tmp[d] = xs[D[p + 1 + d]];
-        for (int d = 0; d < n_flow; ++d) xs[d] = tmp[d];
+        apply_perm(D + p + 1, xs, n_flow);
         p += 1 + n_flow;
       } else {
-        p = apply_cell(D, p, W, xs, jac, n_flow);
+        p = apply_cell(D, p, W, xs, jac, n_flow, no_sink);
       }
     }
     if (dim_major) {

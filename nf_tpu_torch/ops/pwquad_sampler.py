@@ -8,8 +8,9 @@ Jacobian once.  It replaces nf_tpu's Pallas TPU kernel
   * :func:`fold_eval_params`: eval BatchNorm folded into the adjacent linear
     layers on the host, in float64, so each conditioner is a bare
     dense+bias+ReLU MLP;
-  * :func:`encode_plan`: the flow plan as an int32 descriptor plus one flat
-    float32 weight buffer, the two operands the kernel reads;
+  * :func:`plan_descriptor` / :func:`encode_plan`: the flow plan as an int32
+    descriptor plus one flat float32 weight buffer, the two operands the
+    kernel reads (the training kernels read the same two);
   * :func:`philox_uniform`: the kernel's Philox4x32-10 latent stream in
     numpy, so the seeded variant has an exact plain version;
   * :func:`build_sampler`: checks, allocation, launch and the launch count.
@@ -95,21 +96,22 @@ def fold_eval_params(flow, model, dtype=np.float32):
 # Plan encoding (the kernel's two operands)
 # ---------------------------------------------------------------------------
 
-def encode_plan(flow, folded):
-    """Return ``(desc int32[...], weights float32[...])``.
+def plan_descriptor(flow, shapes):
+    """Return ``(desc int32[...], n_weights)`` for a flow whose cell ``c`` has
+    folded layers of ``shapes[c] = [(fan_in, fan_out, relu), ...]``.
 
     ``desc = [n_flow, n_ops, op...]`` where each op is either
       ``[OP_PERM, src_0 .. src_{n_flow-1}]`` (x_new[d] = x[src_d]) or
       ``[OP_CELL, kind, pass_through, n_bins, act, n_layers,
         (fan_in, fan_out, relu, w_offset, b_offset) * n_layers]``
-    with offsets in floats into ``weights``; ``W`` is row-major
-    ``[fan_in, fan_out]``.  Raises if the plan exceeds the kernel's caps.
+    with offsets in floats into one flat weight buffer, filled in ops order;
+    ``W`` is row-major ``[fan_in, fan_out]``.  Raises if the plan exceeds the
+    kernels' caps.  The training kernels share this layout.
     """
     n_flow = flow.n_flow
     if n_flow > MAX_FLOW:
-        raise ValueError(f"fused sampler: n_flow {n_flow} > MAX_FLOW {MAX_FLOW}")
+        raise ValueError(f"fused kernel: n_flow {n_flow} > MAX_FLOW {MAX_FLOW}")
     desc = [n_flow, len(flow.ops)]
-    weights = []
     n_weights = 0
     for op in flow.ops:
         if op[0] != "cell":
@@ -117,24 +119,31 @@ def encode_plan(flow, folded):
             continue
         cfg = flow.cells[op[1]]
         if cfg.kind not in KIND:
-            raise ValueError(f"fused sampler: unsupported cell kind {cfg.kind!r}")
+            raise ValueError(f"fused kernel: unsupported cell kind {cfg.kind!r}")
         n_bins = cfg.n_bins or 0
         if n_bins > MAX_BINS:
-            raise ValueError(f"fused sampler: n_bins {n_bins} > MAX_BINS {MAX_BINS}")
-        layers = folded[op[1]]
+            raise ValueError(f"fused kernel: n_bins {n_bins} > MAX_BINS {MAX_BINS}")
+        layers = shapes[op[1]]
         desc += [OP_CELL, KIND[cfg.kind], cfg.pass_through, n_bins,
                  ACT[cfg.activation], len(layers)]
-        for li, (wm, bv, relu) in enumerate(layers):
-            fan_in, fan_out = wm.shape
+        for li, (fan_in, fan_out, relu) in enumerate(layers):
             # every layer's input, and every output but the streamed last
             # layer's, lives in a per-thread array of MAX_HIDDEN floats
             if fan_in > MAX_HIDDEN or (li < len(layers) - 1 and fan_out > MAX_HIDDEN):
-                raise ValueError(f"fused sampler: layer {fan_in}x{fan_out} "
+                raise ValueError(f"fused kernel: layer {fan_in}x{fan_out} "
                                  f"exceeds MAX_HIDDEN {MAX_HIDDEN}")
-            desc += [fan_in, fan_out, int(relu), n_weights, n_weights + wm.size]
-            weights += [wm.reshape(-1), bv.reshape(-1)]
-            n_weights += wm.size + bv.size
-    desc = np.asarray(desc, dtype=np.int32)
+            desc += [fan_in, fan_out, int(relu), n_weights, n_weights + fan_in * fan_out]
+            n_weights += fan_in * fan_out + fan_out
+    return np.asarray(desc, dtype=np.int32), n_weights
+
+
+def encode_plan(flow, folded):
+    """Return ``(desc int32[...], weights float32[...])``: the descriptor of
+    :func:`plan_descriptor` and the folded weights laid out as it says."""
+    desc, _ = plan_descriptor(
+        flow, [[(*wm.shape, relu) for wm, _, relu in layers] for layers in folded])
+    weights = [a.reshape(-1) for op in flow.ops if op[0] == "cell"
+               for wm, bv, _ in folded[op[1]] for a in (wm, bv)]
     weights = np.concatenate(weights).astype(np.float32) if weights \
         else np.zeros(0, np.float32)
     smem = 4 * (desc.size + weights.size)

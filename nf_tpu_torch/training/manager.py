@@ -11,10 +11,22 @@ replicates the reference.  Variances are *unbiased* throughout (torch.var).
 The trainer runs at the per-epoch cadence (nf_tpu's ``epochs_per_sync=1``):
 one host sync per epoch, for the scalars the state machine needs.
 
+``bn_stats="stale"`` is nf_tpu's stale-statistics trainer: within an epoch
+BatchNorm is folded into the weights with the running statistics held fixed
+(:mod:`nf_tpu_torch.ops.pwquad_train`), so the forward and backward of every
+minibatch are one launch each of the training kernels on a CUDA device; every
+``stats_every`` epochs the running statistics are refreshed from the forward
+kernel's batch sums.  nf_tpu refreshes them in two ways: from those sums on
+its kernel path (``_force_train_kernel=True`` or a TPU), and from a train-mode
+forward on its CPU fallback, whose hidden layers then see batch-normalised
+activations upstream.  The input BatchNorm statistics agree; the hidden
+layers' differ.  The port follows the kernel path on every device: its CPU
+trainer runs the kernels' plain versions, and is held against nf_tpu's
+kernel-path semantics.
+
 Not ported yet, and refused with ``NotImplementedError``: ``mesh``,
-``resume_from``, ``pathwise``, ``bn_stats="stale"``, ``select_best_by="ess"``,
-``epochs_per_sync`` other than 1, ``logdir`` / ``run`` logging and
-checkpoints, and ``integrate(method="qmc")``.
+``resume_from``, ``select_best_by="ess"``, ``epochs_per_sync`` other than 1,
+``logdir`` / ``run`` logging and checkpoints, and ``integrate(method="qmc")``.
 """
 
 from __future__ import annotations
@@ -28,33 +40,41 @@ import torch
 
 from nf_tpu_torch.flows import factory
 from nf_tpu_torch.flows import sampling as fsampling
+from nf_tpu_torch.ops import pwquad_train
 
 
 def _not_ported(name, value):
     raise NotImplementedError(f"{name}={value!r} is not ported to nf_tpu_torch yet")
 
 
-def epoch_step(model, optimizer, f, ws, preburn: bool, maxf, loss_mode: str):
+def epoch_step(model, optimizer, f, ws, preburn: bool, maxf, loss_mode: str,
+               pathwise: bool = False, forward=None):
     """One training epoch on the minibatches of latents ``ws``: the loss
     gradients of all minibatches, averaged, then one optimizer step.
+    ``forward(w) -> (x, jac)`` maps a minibatch; the default is the model's
+    train-mode forward, which moves the BatchNorm buffers.
 
     Returns a tensor ``[loss, var, integ, err]`` (still on the device).
-    Counterpart of the epoch body of nf_tpu's trainer with
-    ``bn_stats="batch"`` (training/manager.py:466-564).
+    Counterpart of the epoch body of nf_tpu's trainer
+    (training/manager.py:466-564).
     """
+    if forward is None:
+        def forward(w):
+            return model(w, True)
     mb = ws[0].shape[0]
     optimizer.zero_grad(set_to_none=True)
     ls, iis, eis, vis = [], [], [], []
     for w in ws:
-        x, jacv = model(w, True)
+        x, jacv = forward(w)
         if preburn:
             # loss on LATENT points: flattens J against f before the map
             # moves (reference manager.py:237-242)
             fres = f(w)
             fXJ = fres * jacv / maxf
         else:
-            # the sample is detached: the gradient flows through J only
-            fres = f(x.detach()) * jacv
+            # the reference detaches the sample, so the gradient flows
+            # through J only; pathwise also differentiates f(x)
+            fres = f(x if pathwise else x.detach()) * jacv
             fXJ = fres / maxf
         if loss_mode == "var" or (loss_mode == "kl" and preburn):
             # kl mode keeps the variance loss during preburn: KL losses are
@@ -79,6 +99,39 @@ def epoch_step(model, optimizer, f, ws, preburn: bool, maxf, loss_mode: str):
     optimizer.zero_grad(set_to_none=True)
     return torch.stack([torch.mean(torch.stack(ls)), torch.sum(torch.stack(vis)),
                         torch.mean(torch.stack(iis)), torch.mean(torch.stack(eis))])
+
+
+def stale_forward(plan, model):
+    """``forward(w) -> (x, jac)`` of the stale-statistics trainer: the model
+    folded with its running statistics, mapped by :class:`FusedTrain` in
+    float32 and cast back to the latents' dtype (nf_tpu manager.py:472-481)."""
+    def forward(w):
+        flat = pwquad_train.fold_flow(model)
+        x, jac = pwquad_train.fused_train(plan, flat, w.to(torch.float32))
+        return x.to(w.dtype), jac.to(w.dtype)
+    return forward
+
+
+def refresh_bn_stats(plan, model, w):
+    """Move ``model``'s running statistics by one EMA step from the forward
+    kernel's batch sums over the latents ``w``, with the model folded as it
+    now is (nf_tpu manager.py:544-555, its kernel path)."""
+    with torch.no_grad():
+        stats = pwquad_train.train_forward(plan, pwquad_train.fold_flow(model),
+                                           w.to(torch.float32), with_stats=True)[3]
+        pwquad_train.stats_to_bn_state(model, stats, w.shape[0])
+
+
+def stale_epoch_step(model, plan, optimizer, f, ws, preburn, maxf, loss_mode,
+                     pathwise=False, refresh_w=None):
+    """One epoch of the stale-statistics trainer: :func:`epoch_step` through
+    :func:`stale_forward`, the BatchNorm statistics fixed, then, with
+    ``refresh_w``, one :func:`refresh_bn_stats` after the optimizer step."""
+    stats = epoch_step(model, optimizer, f, ws, preburn, maxf, loss_mode, pathwise,
+                       stale_forward(plan, model))
+    if refresh_w is not None:
+        refresh_bn_stats(plan, model, refresh_w)
+    return stats
 
 
 def combine_iterations(means, variances, neval: int, nitn: int, combine: str):
@@ -165,6 +218,23 @@ class BasicManager:
 
     # -- the trainer (reference manager.py:66-378) --------------------------
 
+    @staticmethod
+    def _epoch_runner(model, optimizer, uniform, f, maxf, loss_mode, pathwise, plan,
+                      stats_every, stats_batch):
+        """``run_epoch(i, preburn, ws) -> [loss, var, integ, err]`` for global
+        epoch ``i``: the batch-statistics step, or with a :class:`TrainPlan`
+        the stale one, refreshing the statistics on latents drawn by
+        ``uniform(shape)`` when ``i % stats_every == 0`` (nf_tpu
+        manager.py:540-560)."""
+        def run_epoch(i, preburn, ws):
+            if plan is None:
+                return epoch_step(model, optimizer, f, ws, preburn, maxf, loss_mode, pathwise)
+            refresh_w = uniform((stats_batch, ws[0].shape[1])) if i % stats_every == 0 \
+                else None
+            return stale_epoch_step(model, plan, optimizer, f, ws, preburn, maxf, loss_mode,
+                                    pathwise, refresh_w)
+        return run_epoch
+
     def _train_variance_forward_seq(self, f, optimizer_object, log=True,
                                     logdir=None, batch_size=10000, epochs=10,
                                     epoch_start=0, pretty_progressbar=True,
@@ -175,27 +245,28 @@ class BasicManager:
                                     seed=None, mesh=None, pathwise=False,
                                     epochs_per_sync=1, select_best_by="loss",
                                     resume_from=None, progress_callback=None,
-                                    bn_stats="batch"):
+                                    bn_stats="batch", stats_every=4):
         """Train with the integrand variance as loss; the Jacobian comes from
-        the forward pass and the gradient flows through it only.
+        the forward pass and the gradient flows through it only, unless
+        ``pathwise``, which also differentiates ``f(x)``.
 
         ``f(x: [B, n_flow]) -> [B]`` takes and returns tensors.
         ``optimizer_object`` is a factory ``make(params)`` such as
-        :func:`nf_tpu_torch.training.optimizers.adamax`.  Returns
+        :func:`nf_tpu_torch.training.optimizers.adamax`.  ``bn_stats="stale"``
+        trains with the running statistics fixed within each epoch and
+        refreshed every ``stats_every`` epochs (module docstring).  Returns
         ``(integral, error)`` when ``integrate`` else ``(0, 0)``.
         """
         for name, value, ported in (
                 ("mesh", mesh, mesh is None),
                 ("resume_from", resume_from, resume_from is None),
-                ("pathwise", pathwise, not pathwise),
-                ("bn_stats", bn_stats, bn_stats != "stale"),
                 ("select_best_by", select_best_by, select_best_by != "ess"),
                 ("epochs_per_sync", epochs_per_sync, epochs_per_sync == 1),
                 ("logdir", logdir, logdir is None),
                 ("run", run, run is None)):
             if not ported:
                 _not_ported(name, value)
-        if bn_stats != "batch":
+        if bn_stats not in ("batch", "stale"):
             raise ValueError(f"unknown bn_stats {bn_stats!r}")
         if loss_mode not in ("var", "est", "kl"):
             print("Unknown loss function")
@@ -251,6 +322,11 @@ class BasicManager:
         self.int_loss = self.best_loss
 
         optimizer = optimizer_object(model.parameters())
+        epoch_cfg = {"f": f, "maxf": maxf, "loss_mode": loss_mode, "pathwise": pathwise,
+                     "plan": pwquad_train.TrainPlan(self._flow) if bn_stats == "stale" else None,
+                     # the refresh's bounded batch (nf_tpu manager.py:464)
+                     "stats_every": stats_every, "stats_batch": min(mini_batch_size, 1 << 16)}
+        run_epoch = self._epoch_runner(model, optimizer, self._uniform, **epoch_cfg)
 
         # ---- host-side epoch loop with the early-stop state machine
         # (reference manager.py:212-327)
@@ -324,7 +400,7 @@ class BasicManager:
         i = epoch_start - 1
         for i in range(epoch_start, epochs_end):
             ws = [self._uniform((mini_batch_size, n_flow)) for _ in range(n_minibatches)]
-            stats = epoch_step(model, optimizer, f, ws, sm["preburner"], maxf, loss_mode)
+            stats = run_epoch(i, sm["preburner"], ws)
             loss, var_val, integ_e, err_e = stats.tolist()  # the epoch's sync
             if process_epoch(i, loss, var_val, integ_e, err_e):
                 break
@@ -332,6 +408,7 @@ class BasicManager:
         if pbar is not None:
             pbar.close()
         self._last_epoch = i
+        self._bench = (optimizer, epoch_cfg, n_minibatches, mini_batch_size, batch_size)
 
         # ---- PHASE C: tail integration with the best model in eval mode
         # (reference manager.py:332-346; note the reference's asymmetric
@@ -368,6 +445,54 @@ class BasicManager:
         if integrate:
             return (self.integ_tot, self.err_tot)
         return (0, 0)
+
+    def benchmark_train_step(self, reps=5):
+        """Time the last training run's epoch, warm: ``(seconds_per_epoch,
+        train_samples_per_sec)``, the median of ``reps`` after one warm-up.
+
+        It runs on deep copies of the model and the optimizer, and draws its
+        latents from a generator of its own, so the trained state and the
+        manager's stream are untouched; it keeps the run's batch sizes, loss
+        and BatchNorm mode, outside preburn.  One timed rep is ``stats_every`` epochs for
+        the stale trainer, so it holds one statistics refresh, and one epoch
+        otherwise.  On a CUDA device the time is between CUDA events; on the
+        CPU it is the host clock.  Counterpart of nf_tpu's
+        ``benchmark_train_step`` (manager.py:902-965), without its
+        dispatch-latency differencing.
+        """
+        optimizer, cfg, n_mb, mb, batch_size = self._bench
+        # one deepcopy of both keeps the optimizer bound to the copied model
+        model, optimizer = copy.deepcopy((self._model, optimizer))
+        gen = torch.Generator(device=self.device).manual_seed(1234)
+
+        def uniform(shape):
+            return torch.rand(shape, generator=gen, dtype=self.dtype, device=self.device)
+
+        run_epoch = self._epoch_runner(model, optimizer, uniform, **cfg)
+        k = 1 if cfg["plan"] is None else cfg["stats_every"]
+        cuda = self.device.type == "cuda"
+
+        def rep():
+            for i in range(k):
+                run_epoch(i, False, [uniform((mb, self.n_flow)) for _ in range(n_mb)]).tolist()
+
+        rep()
+        times = []
+        for _ in range(reps):
+            if cuda:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                rep()
+                end.record()
+                end.synchronize()
+                times.append(start.elapsed_time(end) / 1e3 / k)
+            else:
+                t0 = time.perf_counter()
+                rep()
+                times.append((time.perf_counter() - t0) / k)
+        sec = float(np.median(times))
+        return sec, batch_size / sec
 
     # -- post-training integrator (reference manager.py:380-405) ------------
 

@@ -222,9 +222,8 @@ def test_early_stop_runs_the_tail_integration():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": object()}, {"resume_from": "state.msgpack"}, {"pathwise": True},
-    {"bn_stats": "stale"}, {"select_best_by": "ess"}, {"epochs_per_sync": "auto"},
-    {"logdir": "runs"}, {"run": object()},
+    {"mesh": object()}, {"resume_from": "state.msgpack"}, {"select_best_by": "ess"},
+    {"epochs_per_sync": "auto"}, {"logdir": "runs"}, {"run": object()},
 ])
 def test_unported_arguments_raise(manager, kwargs):
     with pytest.raises(NotImplementedError, match=next(iter(kwargs))):
