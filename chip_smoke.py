@@ -14,9 +14,12 @@ counter offsets, and times the kernel against its plain version.  Phases
 (``bn_stats="stale"``): forward, stats and backward against their plain
 versions, whole batches up to the sizes the trainers launch at, the stale
 camel-2D path with its launch counts, bench.py's stale stages (with theirs)
-beside the batch-statistics trainer, a device profile, and kernel timings.  Prints one ``{"kernels": [...]}`` line; the last line of standard
-output is ``{"ok": true, "device": {...}}``; any failed check exits non-zero
-before it is printed.  Exits non-zero at once where CUDA is not available.
+beside the batch-statistics trainer, a device profile, and kernel timings,
+each beside the least time the card could take for its work (its bound) and
+the share of that bound it reaches.  Prints one ``{"kernels": [...]}`` line;
+the last line of standard output is ``{"ok": true, "device": {...}}``; any
+failed check exits non-zero before it is printed.  Exits non-zero at once
+where CUDA is not available.
 """
 
 import json
@@ -60,6 +63,47 @@ def time_ms(fn, reps=11, warmup=2):
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+# An H100 SXM's peaks (NVIDIA's data sheet, at 700 W): float32 outside the
+# tensor cores, and HBM3.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES_PER_S = 3.35e12
+
+
+def kernel_work(pt, flow, kernel, n):
+    """``(FLOPs, bytes)`` one launch of ``kernel`` ("sampler", "fwd" or
+    "bwd") needs for ``n`` samples of ``flow``: every input read once and
+    every output written once; an FMA is 2 FLOPs; a transform's arithmetic
+    per transformed dimension as counted from the kernels' code (pwquad
+    with nb bins: ~12 nb + 12 forward, ~33 nb + 32 recompute and VJP).  The
+    backward recomputes the MLP, sends the cotangent back through it and
+    forms dW: three products of the forward's size."""
+    nf = flow.n_flow
+    layers = [pt.layer_shapes(cfg) for cfg in flow.cells]
+    flops = 0
+    for cfg, shapes in zip(flow.cells, layers):
+        t, nb = nf - cfg.pass_through, cfg.n_bins or 0
+        mlp = sum(fi * fo for fi, fo, _ in shapes)
+        if kernel == "bwd":
+            tr = {"pwquad": 33 * nb + 32, "pwlin": 12 * nb + 16, "affine": 25}[cfg.kind]
+            flops += 6 * mlp + sum(fo for _, fo, _ in shapes) + t * tr
+        else:
+            tr = {"pwquad": 12 * nb + 12, "pwlin": 4 * nb + 8, "affine": 10}[cfg.kind]
+            flops += 2 * mlp + sum(fo for _, fo, relu in shapes if relu) + t * tr
+    n_weights = sum(fi * fo + fo for shapes in layers for fi, fo, _ in shapes)
+    staged = 4 * len(flow.cells) * nf
+    per_sample = {"sampler": 4 * nf + 4,                    # x, jac
+                  "fwd": 4 * nf + 4 * nf + 4 + staged,     # latents; x, jac, stage
+                  "bwd": staged + 4 + 4 + 4 * nf + 4 * nf}[kernel]   # stage, jac, jbar, xbar; wbar
+    return n * flops, n * per_sample + 4 * n_weights * (2 if kernel == "bwd" else 1)
+
+
+def bound_ms(flops, nbytes):
+    """The least time the card could take: ``(ms, "operations" | "bytes")``."""
+    t_ops = flops / PEAK_F32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def main():
@@ -443,7 +487,7 @@ def main():
             else (0, 0)
         check(launches == expected,
               f"{bn_stats} trainer launched fwd/bwd {launches}, expected {expected}")
-        return NF_b.benchmark_train_step(reps=3), launches
+        return NF_b.benchmark_train_step(reps=3), launches, NF_b
 
     for bn_stats, mgr in (("stale", NF_s), ("batch", NF)):
         sec, sps = mgr.benchmark_train_step(reps=11)
@@ -455,16 +499,20 @@ def main():
              (10, (8, 8, [16, 16]), {"final_rank": 4}, 1 << 20, 1 << 18, flat_f, 4))):
         for bn_stats, epochs in (("stale", 6 if cfg.startswith("camel") else 3),
                                  ("batch", 6 if cfg.startswith("camel") else 2)):
-            (sec, sps), launches_b = bench_trainer(*bench_args, bn_stats, epochs)
+            (sec, sps), launches_b, mgr_b = bench_trainer(*bench_args, bn_stats, epochs)
+            if cfg.startswith("flagship") and bn_stats == "stale":
+                flagship_stale = mgr_b
             print(f"phase9 {cfg} bn_stats={bn_stats}: training-kernel launches fwd "
                   f"{launches_b[0]} bwd {launches_b[1]}; benchmark_train_step "
                   f"{sec * 1e3:.3f} ms/epoch = {sps:.4e} samples/s {card}")
 
-    # ---- phase 9b: device profile of the trainers at batch 10000
+    # ---- phase 9b: device profile of the trainers at batch 10000, and of
+    # bench.py's flagship stale stage
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for bn_stats, mgr in (("stale", NF_s), ("batch", NF)):
+    for what, mgr in (("stale trainer, batch 10000", NF_s), ("batch trainer, batch 10000", NF),
+                      ("flagship stale trainer, batch 2^20 / 2^18", flagship_stale)):
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -478,16 +526,16 @@ def main():
                   if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
         dev_us = [e.self_device_time_total for e in events]
         total = sum(dev_us)
-        check(total > 0, f"{bn_stats} trainer profile shows device time")
-        epochs_run = 2 * (4 if bn_stats == "stale" else 1)
-        print(f"phase9b {bn_stats} trainer, batch 10000, {epochs_run} epochs under the "
+        check(total > 0, f"{what} profile shows device time")
+        epochs_run = 2 * (4 if "stale" in what else 1)
+        print(f"phase9b {what}, {epochs_run} epochs under the "
               f"profiler: device {total / 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
               f"(busy {total / 1e6 / wall:.1%}) {card}")
         for us, e in sorted(zip(dev_us, events), key=lambda t: -t[0])[:6]:
             print(f"phase9b   {us / 1e3:.3f} ms ({us / total:.1%}) x{e.count} {e.key[:90]}")
 
     # ---- phase 10: training-kernel timings (CUDA events, median of 11)
-    train_t = {}
+    train_t, bounds = {}, {}
     for name, model, n in (("camel2d_trained", NF_s._model, 1 << 20),
                            ("flagship10d_rank4", flows["flagship10d_rank4"], 1 << 18)):
         flow = model.flow
@@ -513,6 +561,16 @@ def main():
         for key, ms in train_t[name].items():
             print(f"phase10 {name} n={n} {key}: {ms:.4f} ms "
                   f"({n / ms * 1e3:.4e} samples/s) {card}")
+        # each kernel beside the least time the card could take for its work
+        for kernel, ms, n_k in (("sampler", timings[name]["kernel_seeded_ms"], 1 << 21),
+                                ("fwd", train_t[name]["fwd_kernel_ms"], n),
+                                ("bwd", train_t[name]["bwd_kernel_ms"], n)):
+            flops, nbytes = kernel_work(pt, flow, kernel, n_k)
+            b_ms, b_by = bound_ms(flops, nbytes)
+            bounds[name, kernel] = (b_ms, b_by)
+            print(f"phase10 {name} {kernel} n={n_k}: {ms:.4f} ms, bound {b_ms:.5f} ms by "
+                  f"{b_by} ({flops / n_k:.0f} FLOP and {nbytes / n_k:.1f} B per sample), "
+                  f"{b_ms / ms:.2%} of the bound {card}")
 
     camel_t = timings["camel2d_trained"]
     camel_tt = train_t["camel2d_trained"]
@@ -526,6 +584,9 @@ def main():
         "max_abs_err": max_abs_err,
         "ms": camel_t["kernel_seeded_ms"],
         "plain_ms": camel_t["plain_rand_plus_folded_ms"],
+        "bound_ms": bounds["camel2d_trained", "sampler"][0],
+        "bound_by": bounds["camel2d_trained", "sampler"][1],
+        "library_ms": None,
     }, {
         "name": "pwquad_train_fwd",
         "route": "cuda",
@@ -535,6 +596,9 @@ def main():
         "max_abs_err": train_err[0],
         "ms": camel_tt["fwd_kernel_ms"],
         "plain_ms": camel_tt["fwd_plain_ms"],
+        "bound_ms": bounds["camel2d_trained", "fwd"][0],
+        "bound_by": bounds["camel2d_trained", "fwd"][1],
+        "library_ms": None,
     }, {
         "name": "pwquad_train_bwd",
         "route": "cuda",
@@ -544,6 +608,9 @@ def main():
         "max_abs_err": train_err[1],
         "ms": camel_tt["bwd_kernel_ms"],
         "plain_ms": camel_tt["bwd_plain_ms"],
+        "bound_ms": bounds["camel2d_trained", "bwd"][0],
+        "bound_by": bounds["camel2d_trained", "bwd"][1],
+        "library_ms": None,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

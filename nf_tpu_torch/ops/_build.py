@@ -74,7 +74,8 @@ def library() -> ctypes.CDLL:
     lib.nf_pwquad_sampler.restype = i
     lib.nf_pwquad_train_fwd.argtypes = [p, i, p, i, p, p, p, p, p, i, i64, i, p]
     lib.nf_pwquad_train_fwd.restype = i
-    lib.nf_pwquad_train_bwd.argtypes = [p, i, p, i, p, p, p, p, p, p, i64, i, p]
+    lib.nf_pwquad_train_bwd.argtypes = [p, i, p, i, p, p, p, p, p, p, i64, i, i, i, i, i,
+                                        i, i64, p]
     lib.nf_pwquad_train_bwd.restype = i
     for limits in (lib.nf_pwquad_sampler_limits, lib.nf_pwquad_train_limits):
         limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
@@ -91,7 +92,8 @@ def _check_limits(lib):
     from nf_tpu_torch.ops import pwquad_train as pt
 
     sampler = (ps.MAX_FLOW, ps.MAX_HIDDEN, ps.MAX_BINS)
-    train = sampler + (pt.MAX_ACTS, pt.MAX_OPS, pt.TRAIN_BLOCK, pt.TRAIN_MAX_BLOCKS)
+    train = sampler + (pt.MAX_ACTS, pt.MAX_OPS, pt.TRAIN_BLOCK, pt.TRAIN_MAX_BLOCKS,
+                       pt.BWD_MAX_BLOCK)
     for fn, want in ((lib.nf_pwquad_sampler_limits, sampler),
                      (lib.nf_pwquad_train_limits, train)):
         caps = (ctypes.c_int * len(want))()

@@ -21,37 +21,48 @@
 // cotangent back through its inverse.  A cell recomputes its conditioner from
 // `stage`, keeping every layer's input, then streams the last layer one
 // transformed dimension at a time: that dimension's logits, its closed-form
-// VJP (pbar = jbar * jac / p), its rows of dW and db, and its share of the
-// last hidden layer's cotangent.  The whole last-layer cotangent (85 wide on
+// VJP (pbar = jbar * jac / p), and its share of the last hidden layer's
+// cotangent.  The whole last-layer cotangent (136 wide in the widest cell of
 // the 10-D flagship) is never held.  Then the hidden layers backward, with
 // their ReLU masks.
 //
-// Accumulation across samples, without float atomics: a block's threads run
-// a block-uniform grid-stride loop (a lane past n computes on dummy inputs
-// and contributes zero), so every lane of a warp reaches each reduction.
-// Each contribution is summed over the warp with shuffles in a fixed order,
-// lane 0 adds it into its warp's slice of shared memory, and at the end each
-// block writes the sum of its warps' slices, in warp order, to row `block` of
-// a [n_blocks, rows] scratch.  The wrapper sums that scratch over blocks.
-// The grid depends on n alone, so two launches on the same inputs give
-// bit-identical gradients and statistics.  Statistics accumulate in double
-// (E[y^2] - E[y]^2 at a batch of 2^20 would lose digits in f32); weight
-// gradients in f32, which the trainer averages and Adamax normalises.
+// Accumulation across samples, without float atomics.  The statistics: a
+// block's threads run a block-uniform grid-stride loop (a lane past n
+// computes on dummy inputs and contributes zero), each value is summed over
+// the warp with shuffles in a fixed order, lane 0 adds it into its warp's
+// slice of shared memory, and each block writes the sum of its warps' slices
+// to row `block` of a [n_blocks, rows] scratch.  The weight gradient, one
+// layer at a time, as a block product (block_dw): every thread stages its
+// sample's layer input and output cotangent in shared-memory tiles, and
+// after a barrier the block adds H^T G over its samples into one
+// accumulator of n_weights floats, each entry summed by one thread in a
+// fixed order; each block writes its accumulator to its row of the scratch.
+// The wrapper sums the scratch over blocks.  The grid depends on n alone (and
+// the backward's on the plan's launch configuration), so two launches on the
+// same inputs give bit-identical gradients and statistics.  Statistics
+// accumulate in double (E[y^2] - E[y]^2 at a batch of 2^20 would lose digits
+// in f32); weight gradients in f32, which the trainer averages and Adamax
+// normalises.
 //
-// What bounds it on an H100.  The backward: instruction issue and latency.
-// Its dW rows cost one five-step warp reduction each per 32 samples, which
-// is about as much work as the per-thread recompute and backward of the MLP.
-// The per-warp dW slices and the weights take shared memory (5 * P floats
-// for P folded weights: ~140 KB on the 10-D flagship), so the flagship's
-// backward runs one block of four warps per SM and hides little latency.
-// The forward: local memory.  The per-thread arrays are indexed at run time
-// and live in local memory, as in the sampler, and compete for L1 with the
-// shared memory the resident blocks take; on the flagship the variant
-// without stats, which fits more blocks per SM, is the slower one.  The
-// levers for later work: a per-block dW product over staged activations
-// instead of per-entry shuffles, weights read through L1 to free shared
-// memory for more warps, an occupancy chosen per plan, and per-plan
-// specialisation to keep the arrays in registers.
+// What bounds it on an H100.  The backward: latency.  Its per-sample work
+// (the recompute from `stage`, the transform VJPs, the cotangent through the
+// MLP) reads every weight from shared memory or L1 and keeps its per-thread
+// arrays (~3 KB of stack) in local memory, which misses L1 once several
+// blocks share an SM; the dW products add about one FMA and one
+// shared-memory load per weight per sample, and two barriers per layer
+// (ptxas, sm_90a: 64 registers, 3120 B stack, no spills, for either weight
+// placement).  So what helps is more warps per SM and fewer barriers per
+// sample: the wrapper picks the block size (128 to 512 samples) and whether
+// the weights sit in shared memory or are read through L1 per plan, to keep
+// the most threads resident with at least two blocks per SM (the 10-D
+// flagship: two blocks of 512 with the weights through L1; camel: blocks of
+// 512 with the weights in shared memory).  The forward: local memory.  The
+// per-thread arrays are indexed at run time and live in local memory, as in
+// the sampler, and compete for L1 with the shared memory the resident blocks
+// take; on the flagship the variant without stats, which fits more blocks
+// per SM, is the slower one.  The levers for later work: per-plan
+// specialisation to keep the per-thread arrays in registers, and an
+// occupancy chosen per plan for the forward.
 
 #include "flow_plan.cuh"
 
@@ -333,20 +344,91 @@ __device__ float affine_dim_vjp(float z_s, float z_t, float x, float ybar,
   return ubar * 20.0f * q.s0;
 }
 
-// Adds v, summed over the warp's valid lanes, to row `row` of the warp's
-// gradient slice.  Every lane must call it.
-__device__ __forceinline__ void accumulate(float* acc, int row, float v, int lane,
-                                           bool valid) {
-  const float s = warp_sum(valid ? v : 0.0f);
-  if (lane == 0) acc[row] += s;
+// ---------------------------------------------------------------------------
+// The backward's weight gradient, one layer at a time, as a block product.
+// Each thread writes its sample's column of two tiles in shared memory,
+// feature-major with a row stride of blockDim.x + 1 floats (odd, so that a
+// warp's loads from distinct rows fall in distinct banks): H, the layer's
+// input and a last row of ones (for the bias), and G, the cotangent of the
+// layer's output.  Lanes past n write zeros.  After a barrier, block_dw adds
+// H^T G over the block's samples to the layer's rows of the accumulator.
+// ---------------------------------------------------------------------------
+
+#define BWD_MAX_BLOCK 512  // threads (samples) per backward block
+#define BWD_MAX_SPLIT 32   // ways a layer's samples are split in block_dw
+
+// The block's shared tiles: H [h_rows][stride], G [g_rows][stride], and
+// block_dw's partial sums [4 * blockDim.x].
+struct BwdTiles {
+  float* H;
+  float* G;
+  float* part;
+  int stride;
+};
+
+// acc[entry(r, c)] += sum_s H[r][s] G[c][s] for r < rows, c < cols, where
+// H's row rows - 1 is the bias (entry b_off + col) and row r < rows - 1 is
+// the weight w_off + r * ld + col, with col = col0 + c * step.  Every thread
+// of the block calls it after the barrier that follows the tile writes; it
+// holds one barrier, after which the tiles may be written again.
+//
+// Each task owns a 2 x 2 tile of entries (one loaded H or G value feeds two
+// FMAs), summed over the samples s = q, q + k, ... in order.  A layer with
+// fewer tiles than threads splits its samples k ways (at most
+// BWD_MAX_SPLIT), so that more threads work; the k partial sums then meet in
+// a fixed order.  No atomics and no shuffles: each entry's sum has one owner
+// and one order.
+__device__ void block_dw(const BwdTiles& tl, int rows, int cols, float* acc, int w_off,
+                         int b_off, int ld, int col0, int step) {
+  const int B = blockDim.x, S = tl.stride;
+  const int nc = (cols + 1) >> 1;
+  const int n_tiles = ((rows + 1) >> 1) * nc;
+  const int k = n_tiles >= B ? 1 : min(B / n_tiles, BWD_MAX_SPLIT);
+  for (int task = threadIdx.x; task < n_tiles * k; task += B) {
+    const int tile = task % n_tiles, q = task / n_tiles;
+    const int r0 = 2 * (tile / nc), c0 = 2 * (tile % nc);
+    // an odd edge reads its last row or column twice and stores it once
+    const float* h0 = tl.H + r0 * S;
+    const float* h1 = tl.H + min(r0 + 1, rows - 1) * S;
+    const float* g0 = tl.G + c0 * S;
+    const float* g1 = tl.G + min(c0 + 1, cols - 1) * S;
+    float a[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+    for (int s = q; s < B; s += k) {
+      const float x0 = h0[s], x1 = h1[s], y0 = g0[s], y1 = g1[s];
+      a[0] = fmaf(x0, y0, a[0]);
+      a[1] = fmaf(x0, y1, a[1]);
+      a[2] = fmaf(x1, y0, a[2]);
+      a[3] = fmaf(x1, y1, a[3]);
+    }
+    if (k == 1) {
+      for (int e = 0; e < 4; ++e) {
+        const int r = r0 + (e >> 1), c = c0 + (e & 1);
+        if (r < rows && c < cols)
+          acc[(r < rows - 1 ? w_off + r * ld : b_off) + col0 + c * step] += a[e];
+      }
+    } else {
+      for (int e = 0; e < 4; ++e) tl.part[4 * task + e] = a[e];
+    }
+  }
+  __syncthreads();
+  if (k == 1) return;
+  for (int e = threadIdx.x; e < 4 * n_tiles; e += B) {
+    const int tile = e >> 2;
+    const int r = 2 * (tile / nc) + ((e >> 1) & 1), c = 2 * (tile % nc) + (e & 1);
+    float s = 0.0f;
+    for (int q = 0; q < k; ++q) s += tl.part[4 * (q * n_tiles + tile) + (e & 3)];
+    if (r < rows && c < cols)
+      acc[(r < rows - 1 ? w_off + r * ld : b_off) + col0 + c * step] += s;
+  }
 }
 
 // Backward through the cell whose descriptor starts at D[p]: xin is the
 // cell's input (from `stage`), xbar the cotangent of its output, replaced by
-// that of its input.
+// that of its input.  Every thread of the block calls it (block_dw's
+// barriers); a lane past n has valid false and writes zeros to the tiles.
 __device__ void cell_vjp(const int* D, int p, const float* __restrict__ W,
                          const float* xin, float* xbar, float jj, float* acc,
-                         int lane, bool valid, int n_flow) {
+                         const BwdTiles& tl, bool valid, int n_flow) {
   const int kind = D[p + 1], pt = D[p + 2], nb = D[p + 3], act = D[p + 4];
   const int n_layers = D[p + 5];
   const int* L = D + p + 6;
@@ -369,10 +451,14 @@ __device__ void cell_vjp(const int* D, int p, const float* __restrict__ W,
     off += fan_in;
   }
 
-  // the last layer, one transformed dimension at a time
+  // the last layer, one transformed dimension at a time: its input, and the
+  // ones row of the bias, stay in H for every dimension's product
+  const int tid = threadIdx.x;
   const float* h = acts + off;
   const int fin = L[0], fout = L[1];
   const float* wl = W + L[3];
+  for (int i = 0; i < fin; ++i) tl.H[i * tl.stride + tid] = valid ? h[i] : 0.0f;
+  tl.H[fin * tl.stride + tid] = valid ? 1.0f : 0.0f;
   float ra[MAX_HIDDEN], rb[MAX_HIDDEN];
   float* r = ra;  // cotangent of the last layer's input
   for (int k = 0; k < fin; ++k) r[k] = 0.0f;
@@ -397,12 +483,11 @@ __device__ void cell_vjp(const int* D, int p, const float* __restrict__ W,
     for (int k = 0; k < width; ++k) {
       const int col = col0 + k * step;
       const float gk = zbar[k];
-      accumulate(acc, L[4] + col, gk, lane, valid);
-      for (int i = 0; i < fin; ++i) {
-        accumulate(acc, L[3] + i * fout + col, h[i] * gk, lane, valid);
-        r[i] = fmaf(wl[i * fout + col], gk, r[i]);
-      }
+      tl.G[k * tl.stride + tid] = valid ? gk : 0.0f;
+      for (int i = 0; i < fin; ++i) r[i] = fmaf(wl[i * fout + col], gk, r[i]);
     }
+    __syncthreads();
+    block_dw(tl, fin + 1, width, acc, L[3], L[4], fout, col0, step);
   }
 
   // the layers before it, last first
@@ -416,16 +501,17 @@ __device__ void cell_vjp(const int* D, int p, const float* __restrict__ W,
     const float* h_out = acts + off + fan_in;
     for (int o = 0; o < fan_out; ++o) {
       if (relu && !(h_out[o] > 0.0f)) r[o] = 0.0f;
-      accumulate(acc, L[4] + o, r[o], lane, valid);
+      tl.G[o * tl.stride + tid] = valid ? r[o] : 0.0f;
     }
     for (int i = 0; i < fan_in; ++i) {
       float s = 0.0f;
-      for (int o = 0; o < fan_out; ++o) {
-        accumulate(acc, L[3] + i * fan_out + o, h_in[i] * r[o], lane, valid);
-        s = fmaf(w[i * fan_out + o], r[o], s);
-      }
+      for (int o = 0; o < fan_out; ++o) s = fmaf(w[i * fan_out + o], r[o], s);
       r_in[i] = s;
+      tl.H[i * tl.stride + tid] = valid ? h_in[i] : 0.0f;
     }
+    tl.H[fan_in * tl.stride + tid] = valid ? 1.0f : 0.0f;
+    __syncthreads();
+    block_dw(tl, fan_in + 1, fan_out, acc, L[3], L[4], fan_out, 0, 1);
     float* tmp = r;
     r = r_in;
     r_in = tmp;
@@ -434,40 +520,59 @@ __device__ void cell_vjp(const int* D, int p, const float* __restrict__ W,
   for (int k = 0; k < pt; ++k) xbar[k] += r[k];
 }
 
-__global__ void __launch_bounds__(TRAIN_BLOCK)
+// W_SMEM: the weights are copied into shared memory; otherwise every thread
+// reads them from device memory through L1, which leaves the shared memory
+// to more resident blocks.
+template <bool W_SMEM>
+__global__ void __launch_bounds__(BWD_MAX_BLOCK)
 train_bwd_kernel(const int* __restrict__ desc, int desc_len,
                  const float* __restrict__ weights, int n_weights,
                  const float* __restrict__ stage, const float* __restrict__ jac_in,
                  const float* __restrict__ jbar_in, const float* __restrict__ xbar0,
-                 float* __restrict__ grad_partial, float* __restrict__ wbar, long long n) {
+                 float* __restrict__ grad_partial, float* __restrict__ wbar, long long n,
+                 int n_ops, int h_rows, int g_rows) {
   extern __shared__ double smem_d[];
-  float* acc = reinterpret_cast<float*>(smem_d);  // [TRAIN_WARPS][n_weights]
-  float* W = acc + TRAIN_WARPS * n_weights;
-  int* D = reinterpret_cast<int*>(W + n_weights);
-  __shared__ int op_pos[MAX_OPS];
-  __shared__ int n_cells;
-  for (int i = threadIdx.x; i < n_weights; i += blockDim.x) W[i] = weights[i];
+  float* acc = reinterpret_cast<float*>(smem_d);  // [n_weights]
+  float* W_s = acc + n_weights;                   // [n_weights] with W_SMEM
+  const float* __restrict__ W = W_SMEM ? W_s : weights;
+  int* D = reinterpret_cast<int*>(W_s + (W_SMEM ? n_weights : 0));
+  int* op_pos = D + desc_len;     // [n_ops]: where each op starts
+  int* n_cells = op_pos + n_ops;  // [1]
+  BwdTiles tl;
+  tl.stride = blockDim.x + 1;
+  tl.H = reinterpret_cast<float*>(n_cells + 1);
+  tl.G = tl.H + h_rows * tl.stride;
+  tl.part = tl.G + g_rows * tl.stride;
+  if (W_SMEM)
+    for (int i = threadIdx.x; i < n_weights; i += blockDim.x) W_s[i] = weights[i];
   for (int i = threadIdx.x; i < desc_len; i += blockDim.x) D[i] = desc[i];
-  for (int i = threadIdx.x; i < TRAIN_WARPS * n_weights; i += blockDim.x) acc[i] = 0.0f;
+  for (int i = threadIdx.x; i < n_weights; i += blockDim.x) acc[i] = 0.0f;
   __syncthreads();
   if (threadIdx.x == 0) {  // where each op starts, to walk them backwards
+    if (D[1] != n_ops) __trap();
     int p = 2, nc = 0;
-    for (int op = 0; op < D[1]; ++op) {
+    for (int op = 0; op < n_ops; ++op) {
       op_pos[op] = p;
       if (D[p] == OP_PERM) {
         p += 1 + D[0];
-      } else {
-        p += 6 + 5 * D[p + 5];
-        ++nc;
+        continue;
       }
+      // the tiles must hold every layer's input and ones row, and every
+      // hidden layer's output or transformed dimension's logits
+      const int kind = D[p + 1], nb = D[p + 3], n_layers = D[p + 5];
+      const int width = kind == KIND_PWQUAD ? 2 * nb + 1 : (kind == KIND_PWLIN ? nb : 2);
+      for (int l = 0; l < n_layers; ++l) {
+        const int* L = D + p + 6 + 5 * l;
+        if (L[0] + 1 > h_rows || (l < n_layers - 1 ? L[1] : width) > g_rows) __trap();
+      }
+      p += 6 + 5 * n_layers;
+      ++nc;
     }
-    n_cells = nc;
+    *n_cells = nc;
   }
   __syncthreads();
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_flow = D[0], n_ops = D[1];
-  float* acc_w = acc + warp * n_weights;
+  const int n_flow = D[0];
   const long long stride = (long long)gridDim.x * blockDim.x;
   for (long long base = (long long)blockIdx.x * blockDim.x; base < n; base += stride) {
     const long long i = base + threadIdx.x;
@@ -475,7 +580,7 @@ train_bwd_kernel(const int* __restrict__ desc, int desc_len,
     float xbar[MAX_FLOW], xin[MAX_FLOW];
     for (int d = 0; d < n_flow; ++d) xbar[d] = valid ? xbar0[i * n_flow + d] : 0.0f;
     const float jj = valid ? jbar_in[i] * jac_in[i] : 0.0f;
-    int cell = n_cells;
+    int cell = *n_cells;
     for (int op = n_ops - 1; op >= 0; --op) {
       const int p = op_pos[op];
       if (D[p] == OP_PERM) {  // x_new[d] = x[src[d]]: xbar[src[d]] = xbar_new[d]
@@ -487,18 +592,15 @@ train_bwd_kernel(const int* __restrict__ desc, int desc_len,
       --cell;
       for (int d = 0; d < n_flow; ++d)
         xin[d] = valid ? stage[((long long)cell * n_flow + d) * n + i] : 0.5f;
-      cell_vjp(D, p, W, xin, xbar, jj, acc_w, lane, valid, n_flow);
+      cell_vjp(D, p, W, xin, xbar, jj, acc, tl, valid, n_flow);
     }
     if (valid) {
       for (int d = 0; d < n_flow; ++d) wbar[i * n_flow + d] = xbar[d];
     }
   }
   __syncthreads();
-  for (int r = threadIdx.x; r < n_weights; r += blockDim.x) {
-    float s = 0.0f;
-    for (int w = 0; w < TRAIN_WARPS; ++w) s += acc[w * n_weights + r];
-    grad_partial[(long long)blockIdx.x * n_weights + r] = s;
-  }
+  for (int r = threadIdx.x; r < n_weights; r += blockDim.x)
+    grad_partial[(long long)blockIdx.x * n_weights + r] = acc[r];
 }
 
 static int set_smem(const void* kernel, size_t smem) {
@@ -518,6 +620,7 @@ int nf_pwquad_train_limits(int* out) {
   out[4] = MAX_OPS;
   out[5] = TRAIN_BLOCK;
   out[6] = TRAIN_MAX_BLOCKS;
+  out[7] = BWD_MAX_BLOCK;
   return 0;
 }
 
@@ -549,19 +652,38 @@ int nf_pwquad_train_fwd(const int* desc, int desc_len, const float* weights,
 }
 
 // stage, jac [n], jbar [n], xbar0 [n, n_flow] -> grad_partial [n_blocks,
-// n_weights] (summed over blocks by the caller) and wbar [n, n_flow].
+// n_weights] (summed over blocks by the caller) and wbar [n, n_flow], in
+// blocks of `block` threads (a multiple of 32, at most BWD_MAX_BLOCK), with
+// the weights in shared memory if w_smem is non-zero.  n_ops is the plan's
+// op count, h_rows / g_rows the rows of the H and G tiles it needs, and smem
+// the block's bytes as the wrapper computed them
+// (pwquad_train.train_bwd_smem_bytes); a mismatch is refused.
 int nf_pwquad_train_bwd(const int* desc, int desc_len, const float* weights,
                         int n_weights, const float* stage, const float* jac,
                         const float* jbar, const float* xbar0, float* grad_partial,
-                        float* wbar, long long n, int n_blocks, void* stream) {
+                        float* wbar, long long n, int n_blocks, int block, int w_smem,
+                        int n_ops, int h_rows, int g_rows, long long smem, void* stream) {
   if (n <= 0) return 0;
-  const size_t smem = sizeof(float) * ((size_t)(TRAIN_WARPS + 1) * n_weights
-                                       + (size_t)desc_len);
-  const int e = set_smem((const void*)train_bwd_kernel, smem);
+  const size_t need = sizeof(float) * ((w_smem ? 2 : 1) * (size_t)n_weights
+                                       + (size_t)desc_len + (size_t)n_ops + 1
+                                       + (size_t)(h_rows + g_rows) * (block + 1)
+                                       + 4 * (size_t)block);
+  if ((size_t)smem != need || h_rows < 1 || g_rows < 1 || block % 32 || block < 32
+      || block > BWD_MAX_BLOCK)
+    return (int)cudaErrorInvalidValue;
+  const void* kernel = w_smem ? (const void*)train_bwd_kernel<true>
+                              : (const void*)train_bwd_kernel<false>;
+  const int e = set_smem(kernel, need);
   if (e) return e;
-  train_bwd_kernel<<<n_blocks, TRAIN_BLOCK, smem, (cudaStream_t)stream>>>(
-      desc, desc_len, weights, n_weights, stage, jac, jbar, xbar0, grad_partial,
-      wbar, n);
+  if (w_smem) {
+    train_bwd_kernel<true><<<n_blocks, block, need, (cudaStream_t)stream>>>(
+        desc, desc_len, weights, n_weights, stage, jac, jbar, xbar0, grad_partial,
+        wbar, n, n_ops, h_rows, g_rows);
+  } else {
+    train_bwd_kernel<false><<<n_blocks, block, need, (cudaStream_t)stream>>>(
+        desc, desc_len, weights, n_weights, stage, jac, jbar, xbar0, grad_partial,
+        wbar, n, n_ops, h_rows, g_rows);
+  }
   return (int)cudaGetLastError();
 }
 

@@ -48,9 +48,18 @@ BWD_LAUNCHES = 0
 # Caps and launch shape compiled into csrc/pwquad_train.cu.
 MAX_ACTS = 256         # inputs of all of one cell's layers
 MAX_OPS = 256          # ops of a flow
-TRAIN_BLOCK = 128      # threads per block
+TRAIN_BLOCK = 128      # threads per block of the forward
 TRAIN_MAX_BLOCKS = 1024
 TRAIN_WARPS = TRAIN_BLOCK // 32
+BWD_MAX_BLOCK = 512    # threads (samples) per block of the backward
+BWD_BLOCKS = (128, 256, 512)  # the block sizes train_bwd_config picks from
+BWD_MAX_THREADS = TRAIN_BLOCK * TRAIN_MAX_BLOCKS  # the backward's grid, in threads
+
+# An H100 SM's shared memory for its resident blocks, and what the runtime
+# reserves per block (CUDA C++ Programming Guide, compute capability 9.0).
+SM_SMEM = 233472
+SMEM_PER_BLOCK_RESERVED = 1024
+SM_THREADS = 2048
 
 
 # ---------------------------------------------------------------------------
@@ -243,6 +252,10 @@ class TrainPlan:
         self.n_stat_rows = sum(2 * cfg.pass_through + sum(2 * fo for _, fo, relu in m if relu)
                                for cfg, m in zip(flow.cells, self.meta))
         self._desc = {}
+        # the descriptor's length in int32s (pwquad_sampler.plan_descriptor)
+        self.desc_len = 2 + sum(1 + flow.n_flow if op[0] != "cell"
+                                else 6 + 5 * len(self.meta[op[1]]) for op in flow.ops)
+        self.bwd_config = None   # train_bwd_config, set with the descriptor
 
     def descriptor(self, device):
         """The int32 descriptor on ``device``; raises if the plan exceeds the
@@ -255,13 +268,66 @@ class TrainPlan:
                 if sum(fi for fi, _, _ in m) > MAX_ACTS:
                     raise ValueError(f"training kernels: a cell's layer inputs exceed "
                                      f"MAX_ACTS {MAX_ACTS}")
+            self.bwd_config = train_bwd_config(self)
             smem = max(8 * TRAIN_WARPS * self.n_stat_rows + 4 * (self.n_weights + desc.size),
-                       4 * ((TRAIN_WARPS + 1) * self.n_weights + desc.size))
+                       train_bwd_smem_bytes(self, *self.bwd_config))
             if smem > SMEM_LIMIT:
                 raise ValueError(f"training kernels: plan needs {smem} B of shared "
                                  f"memory > {SMEM_LIMIT}")
             self._desc[device] = torch.as_tensor(desc, device=device)
         return self._desc[device]
+
+
+def train_bwd_tiles(plan):
+    """``(h_rows, g_rows)``: the rows of the backward kernel's two shared
+    tiles.  H holds a layer's input and a row of ones (the bias); G the
+    cotangent of a hidden layer's output, or of one transformed dimension's
+    logits of the last layer (``2 n_bins + 1`` for pwquad, ``n_bins`` for
+    pwlin, 2 for affine), which is streamed one dimension at a time."""
+    h_rows = g_rows = 1
+    for cfg, shapes in zip(plan.flow.cells, plan.meta):
+        width = {"pwquad": 2 * (cfg.n_bins or 0) + 1, "pwlin": cfg.n_bins or 0,
+                 "affine": 2}[cfg.kind]
+        for li, (fan_in, fan_out, _) in enumerate(shapes):
+            h_rows = max(h_rows, fan_in + 1)
+            g_rows = max(g_rows, fan_out if li < len(shapes) - 1 else width)
+    return h_rows, g_rows
+
+
+def train_bwd_smem_bytes(plan, block, w_smem=True):
+    """Shared memory of one backward block of ``block`` threads: the
+    weight-gradient accumulator and, with ``w_smem``, the weights
+    (``n_weights`` floats each), the descriptor with each op's position and
+    the cell count, the H and G tiles (a row of ``block + 1`` floats per
+    feature) and the block product's partial sums (4 per thread).
+    ``nf_pwquad_train_bwd`` refuses a launch whose count differs from its
+    own."""
+    h_rows, g_rows = train_bwd_tiles(plan)
+    return 4 * ((2 if w_smem else 1) * plan.n_weights + plan.desc_len
+                + len(plan.flow.ops) + 1 + (h_rows + g_rows) * (block + 1) + 4 * block)
+
+
+def blocks_per_sm(smem, block):
+    """Blocks of ``block`` threads and ``smem`` bytes of shared memory that
+    one H100 SM holds at once, by shared memory and threads (registers
+    are not counted: ptxas reports them on the card)."""
+    return min(SM_SMEM // (smem + SMEM_PER_BLOCK_RESERVED), SM_THREADS // block)
+
+
+def train_bwd_config(plan):
+    """``(block, w_smem)`` of the backward for ``plan``: of the block sizes
+    :data:`BWD_BLOCKS`, with the weights in shared memory or read through
+    L1, the launch that keeps the most threads resident on an SM while at
+    least two blocks share it (so that one block's barrier leaves the SM
+    another's work); on a tie, the weights in shared memory (L1 left to the
+    per-thread arrays), then the largest block (fewer barriers per
+    sample)."""
+    def rank(config):
+        block, w_smem = config
+        k = blocks_per_sm(train_bwd_smem_bytes(plan, block, w_smem), block)
+        return (k >= 2, k * block, w_smem, block)
+
+    return max(((b, w) for b in BWD_BLOCKS for w in (True, False)), key=rank)
 
 
 def _check(plan, flat, tensors):
@@ -323,11 +389,12 @@ def train_forward(plan, flat, latents, with_stats=False):
     return x, jac, stage
 
 
-def train_backward(plan, flat, stage, jac, jbar, xbar, latents=None):
+def train_backward(plan, flat, stage, jac, jbar, xbar, latents=None, config=None):
     """``(dflat [n_weights], wbar [n, n_flow])``: the gradient of
     :func:`train_forward`'s ``(x, jac)`` for the cotangents ``(xbar, jbar)``
     with respect to the flat folded weights and the latents.  One launch of
-    the backward kernel on CUDA tensors, which reads ``stage`` and ``jac``;
+    the backward kernel on CUDA tensors, which reads ``stage`` and ``jac``,
+    with ``config = (block, w_smem)`` (default :func:`train_bwd_config`);
     :func:`folded_backward_ref` on CPU tensors, which recomputes from
     ``latents``."""
     global BWD_LAUNCHES
@@ -346,14 +413,19 @@ def train_backward(plan, flat, stage, jac, jbar, xbar, latents=None):
     lib = _build.library()
     device = flat.device
     desc = plan.descriptor(device)
-    n_blocks = _blocks(n)
+    block, w_smem = config or plan.bwd_config
+    if block not in BWD_BLOCKS:
+        raise ValueError(f"backward block {block} not in {BWD_BLOCKS}")
+    smem = train_bwd_smem_bytes(plan, block, w_smem)
+    n_blocks = min(-(-n // block), BWD_MAX_THREADS // block)
     partial = torch.empty((n_blocks, plan.n_weights), dtype=torch.float32, device=device)
     wbar = torch.empty((n, n_flow), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         err = lib.nf_pwquad_train_bwd(
             desc.data_ptr(), desc.numel(), flat.data_ptr(), flat.numel(),
             stage.data_ptr(), jac.data_ptr(), jbar.data_ptr(), xbar.data_ptr(),
-            partial.data_ptr(), wbar.data_ptr(), n, n_blocks,
+            partial.data_ptr(), wbar.data_ptr(), n, n_blocks, block, int(w_smem),
+            len(plan.flow.ops), *train_bwd_tiles(plan), smem,
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pwquad_train backward kernel launch failed: "

@@ -149,14 +149,19 @@ def combine_iterations(means, variances, neval: int, nitn: int, combine: str):
 class BasicManager:
     """Training and integration engine (reference manager.py:52-405).
 
-    ``device`` is where the model, the latents and the generator live
-    (``"cpu"`` or ``"cuda"``); ``dtype`` is the model's float type.
+    ``device`` is where the model, the latents and the generator live: the
+    card (``"cuda"``, the default) unless the caller asks for ``"cpu"``.
+    Without a CUDA device, a manager on the card raises instead of falling
+    back to the CPU.  ``dtype`` is the model's float type.
     """
 
-    def __init__(self, n_flow=2, seed=0, dtype=torch.float32, device="cpu"):
+    def __init__(self, n_flow=2, seed=0, dtype=torch.float32, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"{type(self).__name__}: no CUDA device for device="
+                               f"{device!r}; pass device='cpu' to run on the CPU")
         self.n_flow = n_flow
         self.dtype = dtype
-        self.device = torch.device(device)
         self._gen = torch.Generator(device=self.device).manual_seed(seed)
         self._flow = None
         self._model = None

@@ -29,6 +29,9 @@ FLOWS = {
         g, 10, 8, 8, (16, 16), device=d, final_rank=4),
     "pwquad_squareplus_nohidden": lambda g, d: factory.build_pwquad_flow(
         g, 3, 3, 5, (), device=d, activation="squareplus"),
+    # hidden layers at MAX_HIDDEN and a factored final layer
+    "pwquad_max_hidden_rank": lambda g, d: factory.build_pwquad_flow(
+        g, 2, 2, 4, (ps.MAX_HIDDEN, ps.MAX_HIDDEN), device=d, final_rank=3),
     "pwlin": lambda g, d: factory.build_pwlin_flow(g, 3, 1, 3, 8, (8, 8), 1, device=d),
     "affine": lambda g, d: factory.build_affine_flow(g, 3, 1, 2, (6,), 1, device=d),
 }
@@ -417,7 +420,7 @@ def test_train_kernels_grid_stride_and_determinism(cuda, name):
     the last one ragged; the whole batch is held against the plain version.
     A sample's results do not depend on the launch, so one launch over n
     equals launches over chunks of 2^14 (one pass each): per-sample outputs
-    bit for bit, the sums up to float32 rounding of the per-warp running
+    bit for bit, the sums up to float32 rounding of the per-block running
     sums.  Two launches on the same inputs give bit-identical results."""
     model = _model(name, cuda)
     plan = pt.TrainPlan(model.flow)
@@ -440,8 +443,62 @@ def test_train_kernels_grid_stride_and_determinism(cuda, name):
     bound = 1e-5 * sum(b[0].double().abs() for b in backs)
     assert bool(((dflat.double() - total).abs() <= bound).all())
     _hold_train(plan, flat, w, xbar, jbar)
-    assert torch.equal(pt.train_backward(plan, flat, stage, jac, jbar, xbar)[0], dflat)
+    again = pt.train_backward(plan, flat, stage, jac, jbar, xbar)
+    assert torch.equal(again[0], dflat) and torch.equal(again[1], wbar)
     assert torch.equal(pt.train_forward(plan, flat, w, with_stats=True)[3], stats)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", ["one", "block_minus_one", "block_multiple"])
+@pytest.mark.parametrize("name", ["pwquad_camel", "pwquad_masked_rank",
+                                  "pwquad_max_hidden_rank"])
+def test_train_backward_at_block_edges(cuda, name, size):
+    """The backward's block products at the edges of a block: one sample
+    (every other lane past n), one sample short of the chosen block, and
+    three full blocks; against the plain version in float64, and two
+    launches bit-identical."""
+    model = _model(name, cuda)
+    plan = pt.TrainPlan(model.flow)
+    flat = pt.fold_flow(model).detach()
+    block = pt.train_bwd_config(plan)[0]
+    n = {"one": 1, "block_minus_one": block - 1, "block_multiple": 3 * block}[size]
+    w = _latents(n, model.flow.n_flow, cuda)
+    xbar, jbar = _cotangents(n, model.flow.n_flow, cuda)
+    _hold_train(plan, flat, w, xbar, jbar)
+    _, jac, stage = pt.train_forward(plan, flat, w)
+    first = pt.train_backward(plan, flat, stage, jac, jbar, xbar)
+    again = pt.train_backward(plan, flat, stage, jac, jbar, xbar)
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pwquad_camel", "pwquad_masked_rank"])
+def test_train_backward_every_launch_config(cuda, name):
+    """Every block size, with the weights in shared memory or through L1,
+    gives each sample the same latent cotangents bit for bit, and a weight
+    gradient (summed per block in another order) within nf_tpu's
+    hand-VJP gate of the plain version in float64."""
+    model = _model(name, cuda)
+    plan = pt.TrainPlan(model.flow)
+    flat = pt.fold_flow(model).detach()
+    n = 5000
+    w = _latents(n, model.flow.n_flow, cuda)
+    xbar, jbar = _cotangents(n, model.flow.n_flow, cuda)
+    keep = (pt.kink_distance(plan.flow, flat.double(), w.double()) > KINK).to(torch.float32)
+    xbar, jbar = xbar * keep[:, None], jbar * keep
+    _, jac, stage = pt.train_forward(plan, flat, w)
+    dflat_r, _ = _backward_ref64(plan.flow, flat, w, xbar, jbar)
+    wbar_ref = pt.train_backward(plan, flat, stage, jac, jbar, xbar, config=(128, True))[1]
+    for block in pt.BWD_BLOCKS:
+        for w_smem in (True, False):
+            dflat, wbar = pt.train_backward(plan, flat, stage, jac, jbar, xbar,
+                                            config=(block, w_smem))
+            assert torch.equal(wbar, wbar_ref), (block, w_smem)
+            for a, b in zip(pt.unpack_flat(plan.flow, dflat), pt.unpack_flat(plan.flow, dflat_r)):
+                scale = max(float(b.abs().max()), 1e-3)
+                torch.testing.assert_close(a.double(), b, atol=2e-4 * scale, rtol=2e-3)
+    with pytest.raises(ValueError):
+        pt.train_backward(plan, flat, stage, jac, jbar, xbar, config=(96, True))
 
 
 @pytest.mark.cuda

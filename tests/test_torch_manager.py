@@ -139,7 +139,7 @@ def test_epoch_step_matches_nf_tpu(loss_mode, preburn):
 
 @pytest.fixture(scope="module")
 def manager():
-    NF = PWQuadManager(n_flow=2, seed=0, dtype=torch.float64)
+    NF = PWQuadManager(n_flow=2, seed=0, dtype=torch.float64, device="cpu")
     NF.create_model(2, 4, [4] * 2)
     return NF
 
@@ -193,7 +193,7 @@ def test_sample_paths(manager):
 
 
 def test_camel_trains_and_integrates():
-    NF = PWQuadManager(n_flow=2, seed=0, dtype=torch.float64)
+    NF = PWQuadManager(n_flow=2, seed=0, dtype=torch.float64, device="cpu")
     NF.create_model(2, 4, [4] * 2)
     seen = []
     sig, err = NF._train_variance_forward_seq(
@@ -211,7 +211,7 @@ def test_camel_trains_and_integrates():
 def test_early_stop_runs_the_tail_integration():
     """kill_counter=0 stops at the first epoch whose loss does not fall;
     the remaining epochs are integrated with the best model in eval mode."""
-    NF = PWQuadManager(n_flow=2, seed=1, dtype=torch.float64)
+    NF = PWQuadManager(n_flow=2, seed=1, dtype=torch.float64, device="cpu")
     NF.create_model(2, 4, [4] * 2)
     sig, err = NF._train_variance_forward_seq(
         camel_t, toptim.adamax(2e-3, 1e-4), log=False, batch_size=1000, epochs=20,

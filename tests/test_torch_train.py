@@ -348,7 +348,7 @@ def test_stale_trainer_converges():
     refreshes, and integrates within 6 err + 5%."""
     results = {}
     for mode in ("batch", "stale"):
-        NF = PWQuadManager(n_flow=2, seed=0)
+        NF = PWQuadManager(n_flow=2, seed=0, device="cpu")
         NF.create_model(2, 4, [3] * 3)
         before = {k: v.clone() for k, v in NF._model.named_buffers()}
         NF._train_variance_forward_seq(
