@@ -72,13 +72,21 @@ PEAK_BYTES_PER_S = 3.35e12
 
 
 def kernel_work(pt, flow, kernel, n):
-    """``(FLOPs, bytes)`` one launch of ``kernel`` ("sampler", "fwd" or
-    "bwd") needs for ``n`` samples of ``flow``: every input read once and
-    every output written once; an FMA is 2 FLOPs; a transform's arithmetic
-    per transformed dimension as counted from the kernels' code (pwquad
-    with nb bins: ~12 nb + 12 forward, ~33 nb + 32 recompute and VJP).  The
-    backward recomputes the MLP, sends the cotangent back through it and
-    forms dW: three products of the forward's size."""
+    """``(FLOPs, bytes)`` one launch of ``kernel`` ("sampler", "fwd",
+    "fwd_stats" or "bwd") needs for ``n`` samples of ``flow``: every input
+    read once and every output written once; an FMA is 2 FLOPs; a
+    transform's arithmetic per transformed dimension as counted from the
+    kernels' code (pwquad with nb bins: ~12 nb + 12 forward, ~33 nb + 32
+    recompute and VJP).  The backward recomputes the MLP, sends the
+    cotangent back through it and forms dW: three products of the forward's
+    size.  The forward with stats adds, per statistics value, an add, a
+    multiply and an add, and writes its launch's [n_blocks, n_stat_rows]
+    float64 partial sums."""
+    if kernel == "fwd_stats":
+        flops, nbytes = kernel_work(pt, flow, "fwd", n)
+        plan = pt.TrainPlan(flow)
+        n_blocks = pt.fwd_blocks(n, pt.train_fwd_config(plan, True)[0])
+        return flops + 3 * n * plan.n_stat_rows // 2, nbytes + 8 * n_blocks * plan.n_stat_rows
     nf = flow.n_flow
     layers = [pt.layer_shapes(cfg) for cfg in flow.cells]
     flops = 0
@@ -408,8 +416,13 @@ def main():
         again = pt.train_backward(plan, flat, stage_k, jac_k, jbar, xbar)
         check(torch.equal(again[0], dflat_k) and torch.equal(again[1], wbar_k),
               f"{what} two backward launches bit-identical")
-        check(torch.equal(pt.train_forward(plan, flat, w, with_stats=True)[3], stats_k),
-              f"{what} two stats launches bit-identical")
+        again = pt.train_forward(plan, flat, w, with_stats=True)
+        check(all(torch.equal(a, b) for a, b in zip(again, (x_k, jac_k, stage_k, stats_k))),
+              f"{what} two forward launches bit-identical (x, jac, stage, stats)")
+        # the variant without stats (the trainer's minibatch forward)
+        check(all(torch.equal(a, b) for a, b in zip(pt.train_forward(plan, flat, w),
+                                                     (x_k, jac_k, stage_k))),
+              f"{what} forward without stats bit-identical to the stats variant's")
         return err_x, err_b
 
     # the sizes the main paths launch at: camel's 1M batch in one grid-stride
@@ -541,6 +554,10 @@ def main():
         flow = model.flow
         plan = pt.TrainPlan(flow)
         flat = pt.fold_flow(model).detach()
+        plan.descriptor(dev)
+        print(f"phase10 {name} launches (block, weights in shared memory): forward "
+              f"{plan.fwd_config[False]}, with stats {plan.fwd_config[True]}, backward "
+              f"{plan.bwd_config}")
         w = torch.rand((n, flow.n_flow), generator=gen, device=dev)
         xbar, jbar = cotangents(n, flow.n_flow)
         _, jac, stage = pt.train_forward(plan, flat, w)
@@ -564,6 +581,7 @@ def main():
         # each kernel beside the least time the card could take for its work
         for kernel, ms, n_k in (("sampler", timings[name]["kernel_seeded_ms"], 1 << 21),
                                 ("fwd", train_t[name]["fwd_kernel_ms"], n),
+                                ("fwd_stats", train_t[name]["fwd_stats_kernel_ms"], n),
                                 ("bwd", train_t[name]["bwd_kernel_ms"], n)):
             flops, nbytes = kernel_work(pt, flow, kernel, n_k)
             b_ms, b_by = bound_ms(flops, nbytes)

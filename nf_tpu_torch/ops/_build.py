@@ -72,7 +72,8 @@ def library() -> ctypes.CDLL:
     p, i, i64, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint64
     lib.nf_pwquad_sampler.argtypes = [p, i, p, i, p, u64, u64, p, p, i64, i, p]
     lib.nf_pwquad_sampler.restype = i
-    lib.nf_pwquad_train_fwd.argtypes = [p, i, p, i, p, p, p, p, p, i, i64, i, p]
+    lib.nf_pwquad_train_fwd.argtypes = [p, i, p, i, p, i, p, p, p, p, p, i, i64, i, i, i, i,
+                                        i, i, i64, p]
     lib.nf_pwquad_train_fwd.restype = i
     lib.nf_pwquad_train_bwd.argtypes = [p, i, p, i, p, p, p, p, p, p, i64, i, i, i, i, i,
                                         i, i64, p]
@@ -92,8 +93,7 @@ def _check_limits(lib):
     from nf_tpu_torch.ops import pwquad_train as pt
 
     sampler = (ps.MAX_FLOW, ps.MAX_HIDDEN, ps.MAX_BINS)
-    train = sampler + (pt.MAX_ACTS, pt.MAX_OPS, pt.TRAIN_BLOCK, pt.TRAIN_MAX_BLOCKS,
-                       pt.BWD_MAX_BLOCK)
+    train = sampler + (pt.MAX_ACTS, pt.MAX_OPS, pt.FWD_MAX_BLOCK, pt.BWD_MAX_BLOCK)
     for fn, want in ((lib.nf_pwquad_sampler_limits, sampler),
                      (lib.nf_pwquad_train_limits, train)):
         caps = (ctypes.c_int * len(want))()

@@ -1,7 +1,9 @@
-// The flow plan as the kernels walk it, and the forward of one cell.
+// The flow plan as the kernels walk it, and the sampler's forward of one
+// cell.
 //
-// Shared by pwquad_sampler.cu (eval-mode sampler) and pwquad_train.cu
-// (training forward and backward).  The plan is an int32 descriptor built by
+// The plan is shared by pwquad_sampler.cu (eval-mode sampler) and
+// pwquad_train.cu (training forward and backward); apply_cell, apply_perm
+// and NoSink by the sampler alone.  The plan is an int32 descriptor built by
 // nf_tpu_torch/ops/pwquad_sampler.py::plan_descriptor,
 //
 //   desc = [n_flow, n_ops, op...]
@@ -64,7 +66,7 @@ __device__ __forceinline__ void apply_perm(const int* src, float* xs, int n_flow
 }
 
 // Receives every pre-ReLU hidden activation of a cell, layer after layer;
-// the sampler ignores them, the training forward sums them.
+// the sampler ignores them.
 struct NoSink {
   __device__ __forceinline__ void operator()(float) {}
 };

@@ -20,7 +20,11 @@ its hand-derived backward then run as two CUDA kernels
     first, the definition nf_tpu pins its VJP against), and
     :func:`kink_distance`, which finds the samples where float32 and float64
     may take different gradients, for the checks that compare them;
-  * :class:`TrainPlan` (the descriptor, built once per flow), the wrappers
+  * :class:`TrainPlan` (the descriptor and the forward's row table, built
+    once per flow), each kernel's launch layout, counted here and checked
+    by its C entry point (:func:`train_fwd_smem_bytes`,
+    :func:`train_bwd_smem_bytes`), and its launch chosen per plan
+    (:func:`train_fwd_config`, :func:`train_bwd_config`); the wrappers
     :func:`train_forward` / :func:`train_backward` with their launch counts
     ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``, and :class:`FusedTrain`, the
     ``torch.autograd.Function`` that joins them;
@@ -39,6 +43,7 @@ import torch
 from nf_tpu_torch.bijectors import coupling
 from nf_tpu_torch.bijectors.batchnorm import EPS, MOMENTUM
 from nf_tpu_torch.flows.fast_eval import apply_folded, permutation_index
+from nf_tpu_torch.flows.model import permutation_source
 from nf_tpu_torch.ops.pwquad_sampler import SMEM_LIMIT, plan_descriptor
 
 # Launches of the CUDA kernels since import (or since a caller reset them).
@@ -46,14 +51,16 @@ FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
 # Caps and launch shape compiled into csrc/pwquad_train.cu.
-MAX_ACTS = 256         # inputs of all of one cell's layers
+MAX_ACTS = 256         # inputs of all of one cell's layers (backward)
 MAX_OPS = 256          # ops of a flow
-TRAIN_BLOCK = 128      # threads per block of the forward
-TRAIN_MAX_BLOCKS = 1024
-TRAIN_WARPS = TRAIN_BLOCK // 32
+FWD_MAX_BLOCK = 512    # threads (samples) per block of the forward
 BWD_MAX_BLOCK = 512    # threads (samples) per block of the backward
-BWD_BLOCKS = (128, 256, 512)  # the block sizes train_bwd_config picks from
-BWD_MAX_THREADS = TRAIN_BLOCK * TRAIN_MAX_BLOCKS  # the backward's grid, in threads
+# The launches' block sizes (train_fwd_config and train_bwd_config pick from
+# them) and the most threads of each kernel's grid.
+FWD_BLOCKS = (128, 256, 512)
+BWD_BLOCKS = (128, 256, 512)
+FWD_MAX_THREADS = 1 << 20
+BWD_MAX_THREADS = 1 << 17
 
 # An H100 SM's shared memory for its resident blocks, and what the runtime
 # reserves per block (CUDA C++ Programming Guide, compute capability 9.0).
@@ -251,15 +258,21 @@ class TrainPlan:
         self.n_weights = sum(fi * fo + fo for m in self.meta for fi, fo, _ in m)
         self.n_stat_rows = sum(2 * cfg.pass_through + sum(2 * fo for _, fo, relu in m if relu)
                                for cfg, m in zip(flow.cells, self.meta))
-        self._desc = {}
+        self._desc, self._tab = {}, {}
         # the descriptor's length in int32s (pwquad_sampler.plan_descriptor)
         self.desc_len = 2 + sum(1 + flow.n_flow if op[0] != "cell"
                                 else 6 + 5 * len(self.meta[op[1]]) for op in flow.ops)
-        self.bwd_config = None   # train_bwd_config, set with the descriptor
+        self.fwd_tab = fwd_table(self)
+        self.fwd_tiles = train_fwd_tiles(self)
+        self.n_wpad = padded_weights(self)
+        # {with_stats: train_fwd_config} and train_bwd_config, set with the
+        # descriptor
+        self.fwd_config = None
+        self.bwd_config = None
 
     def descriptor(self, device):
-        """The int32 descriptor on ``device``; raises if the plan exceeds the
-        kernels' caps."""
+        """The int32 descriptor on ``device`` (and the forward's table,
+        :meth:`table`); raises if the plan exceeds the kernels' caps."""
         if device not in self._desc:
             desc, _ = plan_descriptor(self.flow, self.meta)
             if len(self.flow.ops) > MAX_OPS:
@@ -268,14 +281,97 @@ class TrainPlan:
                 if sum(fi for fi, _, _ in m) > MAX_ACTS:
                     raise ValueError(f"training kernels: a cell's layer inputs exceed "
                                      f"MAX_ACTS {MAX_ACTS}")
+            self.fwd_config = {stats: train_fwd_config(self, stats) for stats in (False, True)}
             self.bwd_config = train_bwd_config(self)
-            smem = max(8 * TRAIN_WARPS * self.n_stat_rows + 4 * (self.n_weights + desc.size),
-                       train_bwd_smem_bytes(self, *self.bwd_config))
+            smem = max([train_fwd_smem_bytes(self, *config, stats)
+                        for stats, config in self.fwd_config.items()]
+                       + [train_bwd_smem_bytes(self, *self.bwd_config)])
             if smem > SMEM_LIMIT:
                 raise ValueError(f"training kernels: plan needs {smem} B of shared "
                                  f"memory > {SMEM_LIMIT}")
             self._desc[device] = torch.as_tensor(desc, device=device)
+            self._tab[device] = torch.as_tensor(self.fwd_tab, device=device)
         return self._desc[device]
+
+    def table(self, device):
+        """:func:`fwd_table` on ``device``."""
+        self.descriptor(device)
+        return self._tab[device]
+
+
+def logit_width(cfg):
+    """The last layer's logits per transformed dimension of a cell:
+    ``2 n_bins + 1`` for pwquad, ``n_bins`` for pwlin, 2 for affine."""
+    return {"pwquad": 2 * (cfg.n_bins or 0) + 1, "pwlin": cfg.n_bins or 0,
+            "affine": 2}[cfg.kind]
+
+
+def _round4(v):
+    return -(-v // 4) * 4
+
+
+def fwd_table(plan):
+    """The forward kernel's int32 table: ``[n_cells``, each cell's position
+    in the descriptor, then, for each cell and once more for the end of the
+    flow, the row of the kernel's state tile that holds each of the
+    ``n_flow`` logical dimensions``]``.  The kernel's permutations move no
+    data: each one only changes which row holds which dimension."""
+    n_flow = plan.flow.n_flow
+    rows = np.arange(n_flow)
+    pos, maps, p = [], [], 2
+    for op in plan.flow.ops:
+        if op[0] == "cell":
+            pos.append(p)
+            maps.append(rows)
+            p += 6 + 5 * len(plan.meta[op[1]])
+        else:   # x_new[d] = x[src[d]]
+            rows = rows[permutation_source(op, n_flow)]
+            p += 1 + n_flow
+    return np.concatenate([[len(pos)], pos, *maps, rows]).astype(np.int32)
+
+
+def train_fwd_tiles(plan):
+    """``(rows_a, rows_b)``: the rows of the forward kernel's two conditioner
+    tiles.  Of a cell's hidden layers (all but the last), the last writes A,
+    the one before it B, and so on back; B also holds the last layer's
+    logits of one transformed dimension at a time (:func:`logit_width`)."""
+    rows = [0, 0]
+    for cfg, shapes in zip(plan.flow.cells, plan.meta):
+        hidden = shapes[:-1]
+        for li, (_, fan_out, _) in enumerate(hidden):
+            tile = (len(hidden) - 1 - li) % 2
+            rows[tile] = max(rows[tile], fan_out)
+        rows[1] = max(rows[1], logit_width(cfg))
+    return tuple(rows)
+
+
+def padded_weights(plan):
+    """Floats of the forward's copy of the weights in shared memory, where
+    every row of a layer (its bias too) is padded to a multiple of four: a
+    hidden layer's outputs, or the last layer's logits of each transformed
+    dimension."""
+    total = 0
+    for cfg, shapes in zip(plan.flow.cells, plan.meta):
+        for li, (fan_in, fan_out, _) in enumerate(shapes):
+            ld = (_round4(fan_out) if li < len(shapes) - 1
+                  else (plan.flow.n_flow - cfg.pass_through) * _round4(logit_width(cfg)))
+            total += (fan_in + 1) * ld
+    return total
+
+
+def train_fwd_smem_bytes(plan, block, w_smem=True, stats=False):
+    """Shared memory of one forward block of ``block`` threads: with
+    ``stats``, the block's double accumulator (``n_stat_rows``) and the block
+    sums' partial pairs (2 per thread); the descriptor and :func:`fwd_table`
+    (padded to four int32s); with ``w_smem``, the padded weights
+    (:func:`padded_weights`); and the X, A and B tiles (a row of
+    ``block + 1`` floats per feature).  ``nf_pwquad_train_fwd`` refuses a
+    launch whose count differs from its own."""
+    rows_a, rows_b = plan.fwd_tiles
+    return (8 * (plan.n_stat_rows + 2 * block if stats else 0)
+            + 4 * (_round4(plan.desc_len + plan.fwd_tab.size)
+                   + (plan.n_wpad if w_smem else 0)
+                   + (plan.flow.n_flow + rows_a + rows_b) * (block + 1)))
 
 
 def train_bwd_tiles(plan):
@@ -286,8 +382,7 @@ def train_bwd_tiles(plan):
     pwlin, 2 for affine), which is streamed one dimension at a time."""
     h_rows = g_rows = 1
     for cfg, shapes in zip(plan.flow.cells, plan.meta):
-        width = {"pwquad": 2 * (cfg.n_bins or 0) + 1, "pwlin": cfg.n_bins or 0,
-                 "affine": 2}[cfg.kind]
+        width = logit_width(cfg)
         for li, (fan_in, fan_out, _) in enumerate(shapes):
             h_rows = max(h_rows, fan_in + 1)
             g_rows = max(g_rows, fan_out if li < len(shapes) - 1 else width)
@@ -314,20 +409,40 @@ def blocks_per_sm(smem, block):
     return min(SM_SMEM // (smem + SMEM_PER_BLOCK_RESERVED), SM_THREADS // block)
 
 
-def train_bwd_config(plan):
-    """``(block, w_smem)`` of the backward for ``plan``: of the block sizes
-    :data:`BWD_BLOCKS`, with the weights in shared memory or read through
-    L1, the launch that keeps the most threads resident on an SM while at
-    least two blocks share it (so that one block's barrier leaves the SM
-    another's work); on a tie, the weights in shared memory (L1 left to the
-    per-thread arrays), then the largest block (fewer barriers per
-    sample)."""
+def _best_launch(blocks, smem_bytes, smem_first=False):
+    """Of the block sizes ``blocks``, with the weights in shared memory or
+    read through L1, the launch ``(block, w_smem)`` that keeps the most
+    threads resident on an SM while at least two blocks share it (so that
+    one block's barrier leaves the SM another's work); on a tie, the weights
+    in shared memory, then the largest block (fewer barriers per sample).
+    With ``smem_first``, the weights in shared memory come before the
+    resident threads.  ``smem_bytes(block, w_smem)`` is a block's shared
+    memory."""
     def rank(config):
         block, w_smem = config
-        k = blocks_per_sm(train_bwd_smem_bytes(plan, block, w_smem), block)
-        return (k >= 2, k * block, w_smem, block)
+        k = blocks_per_sm(smem_bytes(block, w_smem), block)
+        return (k >= 2, w_smem, k * block, block) if smem_first else \
+            (k >= 2, k * block, w_smem, block)
 
-    return max(((b, w) for b in BWD_BLOCKS for w in (True, False)), key=rank)
+    return max(((b, w) for b in blocks for w in (True, False)), key=rank)
+
+
+def train_fwd_config(plan, stats=False):
+    """``(block, w_smem)`` of the forward for ``plan``, with or without the
+    statistics, by :func:`_best_launch` over :data:`FWD_BLOCKS`, the weights
+    in shared memory first: the forward reads four outputs' weights per
+    activation, one float4 from shared memory against four loads through L1,
+    and the L1 launches ran ~30% slower at every block size on the 10-D
+    flagship (PERF.md §6)."""
+    return _best_launch(FWD_BLOCKS, lambda b, w: train_fwd_smem_bytes(plan, b, w, stats),
+                        smem_first=True)
+
+
+def train_bwd_config(plan):
+    """``(block, w_smem)`` of the backward for ``plan``, by
+    :func:`_best_launch` over :data:`BWD_BLOCKS` (with the weights in shared
+    memory, L1 is left to the per-thread arrays)."""
+    return _best_launch(BWD_BLOCKS, lambda b, w: train_bwd_smem_bytes(plan, b, w))
 
 
 def _check(plan, flat, tensors):
@@ -346,15 +461,19 @@ def _check(plan, flat, tensors):
         raise ValueError(f"training kernels: unsupported device {flat.device}")
 
 
-def _blocks(n):
-    return min(-(-n // TRAIN_BLOCK), TRAIN_MAX_BLOCKS)
+def fwd_blocks(n, block):
+    """The forward's grid for ``n`` samples in blocks of ``block``: a tile
+    of ``block`` samples per block, at most :data:`FWD_MAX_THREADS` threads
+    (each block then loops over several tiles)."""
+    return min(-(-n // block), FWD_MAX_THREADS // block)
 
 
-def train_forward(plan, flat, latents, with_stats=False):
+def train_forward(plan, flat, latents, with_stats=False, config=None):
     """``(x [n, n_flow], jac [n], stage [n_cells, n_flow, n])``, with
     ``with_stats`` also the float64 ``stats [n_stat_rows]``, of the
-    frozen-statistics map.  One launch of the forward kernel on CUDA tensors;
-    :func:`forward_stats_ref` on CPU tensors."""
+    frozen-statistics map.  One launch of the forward kernel on CUDA
+    tensors, with ``config = (block, w_smem)`` (default
+    :func:`train_fwd_config`); :func:`forward_stats_ref` on CPU tensors."""
     global FWD_LAUNCHES
     n_flow = plan.flow.n_flow
     n = latents.shape[0]
@@ -367,17 +486,23 @@ def train_forward(plan, flat, latents, with_stats=False):
     lib = _build.library()
     device = flat.device
     desc = plan.descriptor(device)
+    tab = plan.table(device)
+    block, w_smem = config or plan.fwd_config[with_stats]
+    if block not in FWD_BLOCKS:
+        raise ValueError(f"forward block {block} not in {FWD_BLOCKS}")
+    smem = train_fwd_smem_bytes(plan, block, w_smem, with_stats)
     x = torch.empty((n, n_flow), dtype=torch.float32, device=device)
     jac = torch.empty(n, dtype=torch.float32, device=device)
     stage = torch.empty((len(plan.flow.cells), n_flow, n), dtype=torch.float32, device=device)
-    n_blocks = _blocks(n)
+    n_blocks = fwd_blocks(n, block)
     partial = torch.empty((n_blocks, plan.n_stat_rows), dtype=torch.float64,
                           device=device) if with_stats else None
     with torch.cuda.device(device):
         err = lib.nf_pwquad_train_fwd(
-            desc.data_ptr(), desc.numel(), flat.data_ptr(), flat.numel(),
-            latents.data_ptr(), x.data_ptr(), jac.data_ptr(), stage.data_ptr(),
-            partial.data_ptr() if with_stats else None, plan.n_stat_rows, n, n_blocks,
+            desc.data_ptr(), desc.numel(), tab.data_ptr(), tab.numel(), flat.data_ptr(),
+            plan.n_wpad, latents.data_ptr(), x.data_ptr(), jac.data_ptr(), stage.data_ptr(),
+            partial.data_ptr() if with_stats else None, plan.n_stat_rows, n, n_flow,
+            n_blocks, block, int(w_smem), *plan.fwd_tiles, smem,
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pwquad_train forward kernel launch failed: "

@@ -7,14 +7,17 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
         nvcc -Xptxas -v on every csrc/*.cu: registers, stack, spills per kernel
     python3 nf_tpu_torch/tools/kernel_timing.py time [--tree DIR]
         kernel and trainer timings of the nf_tpu_torch found in DIR (default:
-        this checkout), one JSON line
+        this checkout), the training wrappers' host time per call, and a
+        digest of the training kernels' outputs (equal digests: the same
+        bits), one JSON line
     python3 nf_tpu_torch/tools/kernel_timing.py pair DIR_A DIR_B DIR_B DIR_A
         ``time`` for each tree in turn, each in its own process (each builds
         its own kernel library), on the same card; one JSON line per tree
     python3 nf_tpu_torch/tools/kernel_timing.py sweep [--tree DIR]
-        the training backward at each of the tree's backward launch
-        configurations (block size, weights in shared memory or through L1;
-        its default only, for a tree without them), one JSON line
+        the training backward, and the forward with and without stats, at
+        each of the tree's launch configurations for that kernel (block
+        size, weights in shared memory or through L1; its default only, for
+        a tree without them), one JSON line
 
 Every timing is the median of CUDA-event times after warm-up, printed beside
 the card's name and power limit from nvidia-smi.  Inputs are made from fixed
@@ -80,6 +83,35 @@ def device_ms(fn, launches=20):
     return sum(e.self_device_time_total for e in rows) / 1e3 / launches
 
 
+def host_us(fn, calls=200):
+    """Median microseconds of host time per call of ``fn`` over five runs
+    of ``calls`` calls each, the card synchronised before and after every
+    run, not inside it."""
+    import time
+
+    import torch
+    fn()
+    runs = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        runs.append((time.perf_counter() - t0) / calls * 1e6)
+        torch.cuda.synchronize()
+    return statistics.median(runs)
+
+
+def digest(*tensors):
+    """The first 16 hex digits of the SHA-256 of the tensors' bytes."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
 def ptxas(tree):
     sys.path.insert(0, tree)
     from nf_tpu_torch.ops import _build
@@ -143,7 +175,7 @@ def time_tree(tree):
         w = torch.rand((n_train, flow.n_flow), generator=gen, device=dev)
         xbar = 0.3 * torch.randn((n_train, flow.n_flow), generator=gen, device=dev)
         jbar = torch.randn(n_train, generator=gen, device=dev)
-        _, jac, stage = pt.train_forward(plan, flat, w)
+        x, jac, stage = pt.train_forward(plan, flat, w)
         seeded = ps.build_sampler(flow, model, layout="dim_major")
         # the kernels the trees share first, each tree from the same state
         calls = {
@@ -154,13 +186,23 @@ def time_tree(tree):
         }
         # one launch between the events (as chip_smoke.py times), then 20;
         # then each kernel's own device time, from the profiler
-        out[name] = {"n_train": n_train}
+        out[name] = {"n_train": n_train, "fwd_digest": digest(x, jac, stage),
+                     "bwd_digest": digest(*calls["bwd"]())}
         for key, fn in calls.items():
             out[name][key + "_ms"] = time_ms(fn)
         for key, fn in calls.items():
             out[name][key + "_x20_ms"] = time_ms(fn, per=20)
         for key, fn in calls.items():
             out[name][key + "_device_ms"] = device_ms(fn)
+        # the training wrappers' host time per call, at a size whose kernels
+        # finish before the host issues the next (the host-bound trainers
+        # pay it on every minibatch)
+        w_small = w[:1024].contiguous()
+        small = (lambda: pt.train_forward(plan, flat, w_small),
+                 lambda: pt.train_backward(plan, flat, stage[:, :, :1024].contiguous(),
+                                           jac[:1024], jbar[:1024], xbar[:1024]))
+        for key, fn in zip(("fwd", "bwd"), small):
+            out[name][key + "_host_us"] = host_us(fn)
     # bench.py's flagship stale stage (bench.py:371-379): batch 2^20 in four
     # minibatches of 2^18 on a flat integrand, one epoch, then timed
     NF = PWQuadManager(n_flow=10, seed=0, device="cuda")
@@ -178,8 +220,9 @@ def time_tree(tree):
 
 
 def sweep(tree):
-    """The backward per launch configuration, camel-2D at 2^20 and the
-    flagship at 2^18, on the inputs ``time`` uses."""
+    """The backward and both forward variants per launch configuration,
+    camel-2D at 2^20 and the flagship at 2^18, on the inputs ``time``
+    uses."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     from nf_tpu_torch.ops import pwquad_train as pt
@@ -208,6 +251,21 @@ def sweep(tree):
                     key = f"block{block}_{'wsmem' if w_smem else 'wl1'}"
                     row[key + "_ms"] = time_ms(lambda: pt.train_backward(
                         plan, flat, stage, jac, jbar, xbar, config=(block, w_smem)))
+                    row[key + "_per_sm"] = pt.blocks_per_sm(smem, block)
+        for stats in (False, True):
+            fwd = "fwd_stats" if stats else "fwd"
+            row[fwd + "_default_ms"] = time_ms(lambda: pt.train_forward(plan, flat, w, stats))
+            if not hasattr(pt, "train_fwd_config"):
+                continue
+            row[fwd + "_default_config"] = pt.train_fwd_config(plan, stats)
+            for block in pt.FWD_BLOCKS:
+                for w_smem in (True, False):
+                    smem = pt.train_fwd_smem_bytes(plan, block, w_smem, stats)
+                    if smem > pt.SMEM_LIMIT:
+                        continue
+                    key = f"{fwd}_block{block}_{'wsmem' if w_smem else 'wl1'}"
+                    row[key + "_ms"] = time_ms(lambda: pt.train_forward(
+                        plan, flat, w, stats, config=(block, w_smem)))
                     row[key + "_per_sm"] = pt.blocks_per_sm(smem, block)
         out[name] = row
     print(json.dumps(out), flush=True)

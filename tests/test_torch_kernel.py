@@ -371,17 +371,26 @@ def _backward_ref64(flow, flat, w, xbar, jbar, chunk=1 << 17):
 KINK = 1e-5
 
 
+def _hold_forward(plan, flat, w, with_stats, config=None):
+    """The forward kernel (with or without stats) against its plain version
+    on the same inputs, the whole batch in one launch.  Returns the
+    kernel's outputs."""
+    out = pt.train_forward(plan, flat, w, with_stats=with_stats, config=config)
+    x_p, jac_p, stage_p, stats_p = pt.forward_stats_ref(plan.flow, flat, w)
+    # compiled f32 maths against torch's: the sampler's gate
+    torch.testing.assert_close(out[0], x_p, rtol=1e-4, atol=2e-5)
+    torch.testing.assert_close(out[1], jac_p, rtol=1e-3, atol=0)
+    torch.testing.assert_close(out[2], stage_p, rtol=1e-4, atol=2e-5)
+    if with_stats:
+        # float64 sums of float32 values that differ by the forward's rounding
+        torch.testing.assert_close(out[3], stats_p, rtol=1e-5, atol=1e-5 * w.shape[0])
+    return out
+
+
 def _hold_train(plan, flat, w, xbar, jbar):
     """Forward, stats and backward kernels against their plain versions on
     the same inputs, the whole batch in one launch."""
-    x_k, jac_k, stage_k, stats_k = pt.train_forward(plan, flat, w, with_stats=True)
-    x_p, jac_p, stage_p, stats_p = pt.forward_stats_ref(plan.flow, flat, w)
-    # compiled f32 maths against torch's: the sampler's gate
-    torch.testing.assert_close(x_k, x_p, rtol=1e-4, atol=2e-5)
-    torch.testing.assert_close(jac_k, jac_p, rtol=1e-3, atol=0)
-    torch.testing.assert_close(stage_k, stage_p, rtol=1e-4, atol=2e-5)
-    # float64 sums of float32 values that differ by the forward's rounding
-    torch.testing.assert_close(stats_k, stats_p, rtol=1e-5, atol=1e-5 * w.shape[0])
+    _, jac_k, stage_k, _ = _hold_forward(plan, flat, w, with_stats=True)
     # the samples at a kink take no part in the backward's check
     keep = (pt.kink_distance(plan.flow, flat.double(), w.double()) > KINK).to(torch.float32)
     xbar, jbar = xbar * keep[:, None], jbar * keep
@@ -499,6 +508,79 @@ def test_train_backward_every_launch_config(cuda, name):
                 torch.testing.assert_close(a.double(), b, atol=2e-4 * scale, rtol=2e-3)
     with pytest.raises(ValueError):
         pt.train_backward(plan, flat, stage, jac, jbar, xbar, config=(96, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", ["block_minus_one", "block", "block_plus_one", "two_blocks_333"])
+@pytest.mark.parametrize("name", sorted(FLOWS))
+def test_train_forward_at_block_edges(cuda, name, size):
+    """The forward's tiles at the edges of a block, with and without stats,
+    each at its chosen block size S: S - 1 samples (the last lane past n),
+    S, S + 1 (a second tile of one sample), 2 S + 333; against the plain
+    version.  Both variants give the same x, jac and stage bit for bit."""
+    model = _model(name, cuda)
+    plan = pt.TrainPlan(model.flow)
+    flat = pt.fold_flow(model).detach()
+    plan.descriptor(cuda)
+    for with_stats in (False, True):
+        block = plan.fwd_config[with_stats][0]
+        n = {"block_minus_one": block - 1, "block": block, "block_plus_one": block + 1,
+             "two_blocks_333": 2 * block + 333}[size]
+        w = _latents(n, model.flow.n_flow, cuda)
+        out = _hold_forward(plan, flat, w, with_stats)
+        other = pt.train_forward(plan, flat, w, with_stats=not with_stats)
+        assert all(torch.equal(a, b) for a, b in zip(out[:3], other[:3]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_stats", [False, True])
+@pytest.mark.parametrize("name", ["pwquad_camel", "pwquad_masked_rank", "pwlin", "affine"])
+def test_train_forward_every_launch_config(cuda, name, with_stats):
+    """Every block size, with the weights in shared memory or through L1,
+    gives each sample the same x, jac and stage bit for bit, and statistics
+    (summed per block in another order) within the plain version's gate."""
+    model = _model(name, cuda)
+    plan = pt.TrainPlan(model.flow)
+    flat = pt.fold_flow(model).detach()
+    w = _latents(5000, model.flow.n_flow, cuda)
+    first = None
+    for block in pt.FWD_BLOCKS:
+        for w_smem in (True, False):
+            out = _hold_forward(plan, flat, w, with_stats, config=(block, w_smem))
+            first = first or out
+            assert all(torch.equal(a, b) for a, b in zip(out[:3], first[:3])), (block, w_smem)
+    with pytest.raises(ValueError):
+        pt.train_forward(plan, flat, w, with_stats=with_stats, config=(96, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FLOWS))
+def test_train_forward_launches_bit_identical(cuda, name):
+    """Two launches on the same inputs give the same x, jac, stage and
+    stats bit for bit: no atomics, one owner and one order per sum."""
+    model = _model(name, cuda)
+    plan = pt.TrainPlan(model.flow)
+    flat = pt.fold_flow(model).detach()
+    w = _latents(20000, model.flow.n_flow, cuda)
+    first = pt.train_forward(plan, flat, w, with_stats=True)
+    again = pt.train_forward(plan, flat, w, with_stats=True)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+def test_train_forward_refuses_a_wrong_smem_count(cuda, monkeypatch):
+    """The C entry point refuses a launch whose shared-memory count differs
+    from its own; the wrapper raises, and nothing falls back."""
+    model = _model("pwquad_camel", cuda)
+    plan = pt.TrainPlan(model.flow)
+    flat = pt.fold_flow(model).detach()
+    w = _latents(100, 2, cuda)
+    count = pt.train_fwd_smem_bytes
+    monkeypatch.setattr(pt, "train_fwd_smem_bytes", lambda *a: count(*a) + 4)
+    launches = pt.FWD_LAUNCHES
+    with pytest.raises(RuntimeError, match="forward kernel launch failed"):
+        pt.train_forward(plan, flat, w)
+    assert pt.FWD_LAUNCHES == launches
 
 
 @pytest.mark.cuda
