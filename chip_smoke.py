@@ -4,7 +4,8 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from ``nf_tpu_torch/ops/csrc``.  Phases 3-6: holds
-the fused sampler against its plain PyTorch version on the card, runs the
+the fused sampler against its plain PyTorch version on the card (on plans
+beyond the kernels' old caps too), runs the
 camel-2D main path (train, then ``sample`` and ``integrate``) through the
 manager, checks that ``sample`` and ``integrate`` went through the kernel and
 that the integral agrees with the analytic value, holds the kernel against
@@ -16,7 +17,10 @@ versions, whole batches up to the sizes the trainers launch at, the stale
 camel-2D path with its launch counts, bench.py's stale stages (with theirs)
 beside the batch-statistics trainer, a device profile, and kernel timings,
 each beside the least time the card could take for its work (its bound) and
-the share of that bound it reaches.  Prints one ``{"kernels": [...]}`` line;
+the share of that bound it reaches.  Phase 11 runs ``create_model(2, 4, [128,
+128])``, a model the kernels once refused, through ``sample``, ``integrate``
+and the stale trainer, each kernel against its plain version on that plan.
+Prints one ``{"kernels": [...]}`` line;
 the last line of standard output is ``{"ok": true, "device": {...}}``; any
 failed check exits non-zero before it is printed.  Exits non-zero at once
 where CUDA is not available.
@@ -171,7 +175,13 @@ def main():
                                                        final_rank=4),
         "pwlin3d": factory.build_pwlin_flow(gen, 3, 1, 3, 8, (8, 8), 1, device=dev),
         "affine2d": factory.build_affine_flow(gen, 2, 1, 2, (6,), 1, device=dev),
+        # beyond the kernels' old caps: 40 bins and hidden width 96, 36
+        # latent dims, create_model(2, 4, [128, 128])'s 257 layer inputs
+        "bins40_hidden96": factory.build_pwquad_flow(gen, 2, 2, 40, (96, 96), device=dev),
+        "flow36_narrow": factory.build_pwquad_flow(gen, 36, 2, 2, (4,), device=dev),
+        "wide128": factory.build_pwquad_flow(gen, 2, 2, 4, (128, 128), device=dev),
     }
+    over_caps = ("bins40_hidden96", "flow36_narrow", "wide128")
     max_abs_err = 0.0
     for name, model in flows.items():
         perturb_bn(model)
@@ -269,11 +279,16 @@ def main():
     def philox_latents(seed, offset, n):
         return torch.from_numpy(ps.philox_uniform(seed, offset, n, 2)).to(dev)
 
-    # sample(): the entry point itself, its seed drawn as the manager draws it
+    # sample(): the entry point itself, its seed drawn as the manager draws
+    # it; a second call gives the same bits
     x_k, jac_k = NF.sample(1 << 24, seed=5)
     seed = fsampling.seed_from(torch.Generator(device=dev).manual_seed(5))
     max_abs_err = max(max_abs_err, hold("sample(2^24, seed=5) batch-major", x_k, jac_k,
                                         philox_latents(seed, 0, 1 << 24)))
+    again = NF.sample(1 << 24, seed=5)
+    check(torch.equal(again[0], x_k) and torch.equal(again[1], jac_k),
+          "two sample(2^24, seed=5) calls bit-identical")
+    del again
     # integrate(): its dim-major sampler, called as integrate(f, 8, 2^21) calls it
     seed0 = fsampling.seed_from(torch.Generator(device=dev).manual_seed(6))
     dm = ps.build_sampler(NF._flow, best, layout="dim_major")
@@ -336,6 +351,8 @@ def main():
         "pwlin": factory.build_pwlin_flow(gen, 3, 1, 2, 4, (5,), 1, device=dev),
         "affine": factory.build_affine_flow(gen, 3, 2, 2, (5,), 1, device=dev),
         "flagship10d_rank4": flows["flagship10d_rank4"],
+        # the backward's per-thread arrays in its workspace
+        **{name: flows[name] for name in over_caps},
     }
 
     # ~7x the forward's worst |dx| against its plain version on the flagship
@@ -589,6 +606,53 @@ def main():
             print(f"phase10 {name} {kernel} n={n_k}: {ms:.4f} ms, bound {b_ms:.5f} ms by "
                   f"{b_by} ({flops / n_k:.0f} FLOP and {nbytes / n_k:.1f} B per sample), "
                   f"{b_ms / ms:.2%} of the bound {card}")
+
+    # ---- phase 11: a model beyond the kernels' old caps through the user's
+    # entry points: create_model(2, 4, [128, 128]) (hidden width 128, 257
+    # layer inputs a cell), a few stale epochs, then sample and integrate;
+    # every kernel launched, then each against its plain version on the
+    # trained model's plan
+    NF_w = PWQuadManager(n_flow=2, seed=0, device="cuda")
+    NF_w.create_model(2, 4, [128, 128])
+    wide_plan = pt.TrainPlan(NF_w._flow)
+    wide_plan.descriptor(dev)
+    print(f"phase11 wide128 launches (block, weights in shared memory): sampler "
+          f"{ps.SamplerPlan(NF_w._flow).config}, forward {wide_plan.fwd_config[False]}, with "
+          f"stats {wide_plan.fwd_config[True]}, backward {wide_plan.bwd_config} with a "
+          f"{wide_plan.bwd_ws}-float workspace per thread")
+    ps.LAUNCHES = pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    NF_w._train_variance_forward_seq(
+        camel, optimizers.adamax(2e-3, 1e-4), log=False, batch_size=20000, epochs=8,
+        mini_batch_size=10000, preburn_time=0, integrate=False, pretty_progressbar=False,
+        bn_stats="stale", stats_every=4)
+    x_w, jac_w = NF_w.sample(1 << 20)
+    sig_w, err_w = NF_w.integrate(camel, 4, 1 << 20)
+    torch.cuda.synchronize()
+    wide_s = time.perf_counter() - t0
+    wide_launches = (ps.LAUNCHES, pt.FWD_LAUNCHES, pt.BWD_LAUNCHES)
+    ran = NF_w._last_epoch + 1
+    print(f"phase11 wide128: {ran} stale epochs, sample(2^20), integrate(4, 2^20) in "
+          f"{wide_s:.2f} s; launches sampler {wide_launches[0]} fwd {wide_launches[1]} "
+          f"bwd {wide_launches[2]}; integral {sig_w:.6f} +- {err_w:.2e} (exact {exact:.6f})")
+    check(wide_launches == (1 + 4, 2 * ran + (ran - 1) // 4 + 1, 2 * ran),
+          f"wide128 path launched sampler/fwd/bwd {wide_launches}")
+    check(x_w.shape == (1 << 20, 2) and bool(torch.isfinite(jac_w).all())
+          and bool(((x_w >= 0) & (x_w <= 1)).all()), "wide128 sample() output")
+    check(math.isfinite(sig_w) and err_w > 0 and abs(sig_w - exact) <= 5 * err_w + 0.01 * exact,
+          "wide128 |sig - exact| <= 5 err + 1%")
+    w = torch.from_numpy(ps.philox_uniform(11, 3 << 20, 1 << 20, 2)).to(dev)
+    x_k, jac_k = ps.build_sampler(NF_w._flow, NF_w.best_model, layout="dim_major")(
+        11, 1 << 20, offset=3 << 20)
+    x_p, jac_p = make_folded_forward(NF_w._flow, NF_w.best_model)(w)
+    err_w = float((x_k.T - x_p).abs().max())
+    print(f"phase11 wide128 sampler 2^20 dim-major at an offset: max|dx|={err_w:.3e} "
+          f"max|djac/jac|={float(((jac_k - jac_p) / jac_p).abs().max()):.3e}")
+    check(torch.allclose(x_k.T, x_p, rtol=1e-4, atol=2e-5), "wide128 sampler x vs plain")
+    check(torch.allclose(jac_k, jac_p, rtol=1e-3, atol=0.0), "wide128 sampler jac vs plain")
+    hold_train("wide128 trained n=10000", wide_plan, pt.fold_flow(NF_w._model).detach(),
+               torch.rand((10000, 2), generator=gen, device=dev))
 
     camel_t = timings["camel2d_trained"]
     camel_tt = train_t["camel2d_trained"]

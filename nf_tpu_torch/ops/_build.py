@@ -70,13 +70,14 @@ def library() -> ctypes.CDLL:
         _compile(sources, out)
     lib = ctypes.CDLL(str(out))
     p, i, i64, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_uint64
-    lib.nf_pwquad_sampler.argtypes = [p, i, p, i, p, u64, u64, p, p, i64, i, p]
+    lib.nf_pwquad_sampler.argtypes = [p, i, p, i, p, i, p, u64, u64, p, p, i64, i, i, i, i, i,
+                                      i, i64, i, p]
     lib.nf_pwquad_sampler.restype = i
-    lib.nf_pwquad_train_fwd.argtypes = [p, i, p, i, p, i, p, p, p, p, p, i, i64, i, i, i, i,
-                                        i, i, i64, p]
+    lib.nf_pwquad_train_fwd.argtypes = [p, i, p, i, p, i, p, p, p, p, p, i, i, i64, i, i, i,
+                                        i, i, i, i64, p]
     lib.nf_pwquad_train_fwd.restype = i
     lib.nf_pwquad_train_bwd.argtypes = [p, i, p, i, p, p, p, p, p, p, i64, i, i, i, i, i,
-                                        i, i64, p]
+                                        i, i64, p, i64, i, ctypes.POINTER(ctypes.c_int), p]
     lib.nf_pwquad_train_bwd.restype = i
     for limits in (lib.nf_pwquad_sampler_limits, lib.nf_pwquad_train_limits):
         limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
@@ -92,15 +93,16 @@ def _check_limits(lib):
     from nf_tpu_torch.ops import pwquad_sampler as ps
     from nf_tpu_torch.ops import pwquad_train as pt
 
-    sampler = (ps.MAX_FLOW, ps.MAX_HIDDEN, ps.MAX_BINS)
-    train = sampler + (pt.MAX_ACTS, pt.MAX_OPS, pt.FWD_MAX_BLOCK, pt.BWD_MAX_BLOCK)
+    sampler = (ps.SAMPLER_MAX_BLOCK,)
+    train = (pt.BWD_LOCAL_FLOW, pt.BWD_LOCAL_HIDDEN, pt.BWD_LOCAL_BINS, pt.BWD_LOCAL_ACTS,
+             pt.FWD_MAX_BLOCK, pt.BWD_MAX_BLOCK)
     for fn, want in ((lib.nf_pwquad_sampler_limits, sampler),
                      (lib.nf_pwquad_train_limits, train)):
         caps = (ctypes.c_int * len(want))()
         fn(caps)
         if tuple(caps) != want:
-            raise RuntimeError(f"{fn.__name__}: kernel caps {tuple(caps)} != "
-                               f"wrapper caps {want}")
+            raise RuntimeError(f"{fn.__name__}: kernel sizes {tuple(caps)} != "
+                               f"wrapper sizes {want}")
 
 
 def error_string(err: int) -> str:

@@ -56,15 +56,19 @@
 // MLP) reads every weight from shared memory or L1 and keeps its per-thread
 // arrays (~3 KB of stack) in local memory, which misses L1 once several
 // blocks share an SM; the dW products add about one FMA and one
-// shared-memory load per weight per sample, and two barriers per layer
-// (ptxas, sm_90a: 64 registers, 3120 B stack, no spills, for either weight
-// placement).  So what helps is more warps per SM and fewer barriers per
-// sample: the wrapper picks the block size (128 to 512 samples) and whether
-// the weights sit in shared memory or are read through L1 per plan, to keep
-// the most threads resident with at least two blocks per SM (the 10-D
-// flagship: two blocks of 512 with the weights through L1; camel: blocks of
-// 512 with the weights in shared memory).  The forward: the shared-memory
-// pipe and latency.  It keeps no per-thread array: every activation, logit
+// shared-memory load per weight per sample, and two barriers per layer.  A
+// plan beyond the local arrays' sizes (MAX_* below) runs the workspace
+// kernel, whose arrays are plan-sized slices of a device buffer
+// (train_bwd_ws_kernel): the same arithmetic, more device-memory traffic.  So
+// what helps is more warps per SM and fewer barriers per sample: the
+// wrapper picks the block size (128 to 512 samples, 64 or 32 where none of
+// those fits) and whether the weights sit in shared memory or are read
+// through L1 per plan, to keep the most threads resident with at least two
+// blocks per SM (the 10-D flagship: two blocks of 512 with the weights
+// through L1; camel: blocks of 512 with the weights in shared memory).  The
+// dW accumulator holds every weight of the plan in shared memory, which
+// caps the backward's plans at about 56k weights.  The forward: the
+// shared-memory pipe and latency.  It keeps no per-thread array: every activation, logit
 // and state value is a conflict-free shared-memory access to the thread's
 // own column (a warp's 32 columns are consecutive).  Each thread computes a
 // layer's outputs four at a time, so one activation load feeds four FMAs,
@@ -78,208 +82,24 @@
 // Capped at 64 registers (__launch_bounds__(FWD_MAX_BLOCK, 2)) an SM holds
 // 32 warps; at the ~110 registers it would take it held 16, and each
 // barrier idled it.  The wrapper chooses the block size (128 to 512
-// samples) and the weights' place per plan, the weights in shared memory
-// first (train_fwd_config).  On an NVIDIA H100 (PERF.md section 6): the
+// samples, or 64 or 32) and the weights' place per plan, the weights in
+// shared memory first (train_fwd_config).  On an NVIDIA H100 (PERF.md section 6): the
 // flagship at 7% of its bound (0.78 ms per 2^18); camel's stats variant is
 // bound by its block sums' barriers and serial merges.
 
 #include "flow_plan.cuh"
 
-#define MAX_ACTS 256  // inputs of all of a cell's layers, per thread (backward)
-#define MAX_OPS 256
+// The backward's per-thread arrays at these sizes are local arrays; a plan
+// beyond any of them runs the workspace kernel (train_bwd_ws_kernel below).
+#define MAX_FLOW 32    // latent dims
+#define MAX_HIDDEN 64  // any layer's fan_in
+#define MAX_BINS 32    // bins of a pwquad / pwlin cell
+#define MAX_ACTS 256   // inputs of all of a cell's layers
 #define FWD_MAX_BLOCK 512    // threads (samples) per forward block
 #define STATS_MAX_SPLIT 8    // ways a statistics row's samples are split
 
 __device__ __forceinline__ float positivity_grad(float z, int act) {
   return act == ACT_EXP ? expf(z) : 0.5f * (1.0f + z / sqrtf(z * z + 4.0f));
-}
-
-// ---------------------------------------------------------------------------
-// The forward of one transformed dimension, with the quantities its VJP
-// reads, for the training forward and the backward's recompute: the
-// operations of flow_plan.cuh's apply_cell, in the same order, so bins and
-// pdfs are the sampler's own.  These are the twins of apply_cell's inline
-// transform maths, so an edit to either, the bin selection or the clamp
-// above all, is made in both; the kernel-vs-plain checks of the three
-// kernels keep them in step.  Z is the logits' accessor: a local array in
-// the backward (float*), a column of a shared-memory tile in the forward
-// (TileCol).
-// ---------------------------------------------------------------------------
-
-// Column t of a feature-major tile: element k is k rows down.
-struct TileCol {
-  float* p;
-  int stride;
-  __device__ __forceinline__ float& operator[](int k) const { return p[k * stride]; }
-  __device__ __forceinline__ TileCol operator+(int k) const { return {p + k * stride, stride}; }
-};
-
-// One pwquad dimension.  z holds n_bins + 1 vertex logits, then n_bins width
-// logits; they are replaced in place by the normalised heights v and widths u.
-struct PwquadDim {
-  float p;            // pdf
-  float a, w_b;       // position inside the bin, width of the bin
-  float v_lo, v_hi;   // normalised heights at the bin's edges
-  float vw_b;         // the trapezoid area left of the bin
-  float wtot, vnorm;  // the two normalisers: sum of widths, trapezoid area
-  int bin;
-};
-
-template <class Z>
-__device__ __forceinline__ PwquadDim pwquad_dim(Z z, int nb, int act, float x_raw) {
-  Z v = z;            // nb + 1 vertex heights
-  Z wd = z + nb + 1;  // nb bin widths
-  float wtot = 0.0f;
-  for (int k = 0; k < nb; ++k) {
-    wd[k] = positivity(wd[k], act);
-    wtot += wd[k];
-  }
-  for (int k = 0; k < nb; ++k) wd[k] = wd[k] / wtot;
-  for (int k = 0; k <= nb; ++k) v[k] = positivity(v[k], act);
-  float vnorm = 0.0f;
-  for (int k = 0; k < nb; ++k) vnorm += (v[k] + v[k + 1]) * 0.5f * wd[k];
-  for (int k = 0; k <= nb; ++k) v[k] = v[k] / vnorm;
-  const float xB = fminf(x_raw, CLAMP_HI);
-  // the bin: the last k whose left edge is <= xB (the last bin's upper
-  // bound is open)
-  float edge = 0.0f, vw = 0.0f;
-  float w_b = wd[0], edge_b = 0.0f, vw_b = 0.0f, v_lo = v[0], v_hi = v[1];
-  int bin = 0;
-  for (int k = 0; k < nb; ++k) {
-    const bool in = xB >= edge;
-    bin = in ? k : bin;
-    w_b = in ? wd[k] : w_b;
-    edge_b = in ? edge : edge_b;
-    vw_b = in ? vw : vw_b;
-    v_lo = in ? v[k] : v_lo;
-    v_hi = in ? v[k + 1] : v_hi;
-    vw += (v[k] + v[k + 1]) * 0.5f * wd[k];
-    edge += wd[k];
-  }
-  PwquadDim q;
-  q.a = (xB - edge_b) / w_b;
-  q.p = v_lo + (v_hi - v_lo) * q.a;
-  q.w_b = w_b;
-  q.v_lo = v_lo;
-  q.v_hi = v_hi;
-  q.vw_b = vw_b;
-  q.wtot = wtot;
-  q.vnorm = vnorm;
-  q.bin = bin;
-  return q;
-}
-
-// One pwlin dimension from its n_bins positive heights q.
-struct PwlinDim {
-  float p, alpha, qtot;
-  int bin;
-};
-
-template <class Z>
-__device__ __forceinline__ PwlinDim pwlin_dim(Z q, int nb, float x) {
-  float qtot = 0.0f;
-  for (int k = 0; k < nb; ++k) qtot += q[k];
-  const float a = x * (float)nb;
-  // clamp the bin before alpha: x == 1.0 maps to the right edge
-  int bin = (int)floorf(a);
-  bin = bin < 0 ? 0 : (bin > nb - 1 ? nb - 1 : bin);
-  PwlinDim r;
-  r.p = q[bin] / (qtot / (float)nb);
-  r.alpha = (a - (float)bin) / (float)nb;
-  r.qtot = qtot;
-  r.bin = bin;
-  return r;
-}
-
-// One affine dimension; p leaves out the 2/pi the cell applies once.
-struct AffineDim {
-  float p, s0, u, diff;
-};
-
-__device__ __forceinline__ AffineDim affine_dim(float z_s, float z_t, float x) {
-  AffineDim q;
-  q.s0 = expf(z_s);
-  q.u = x * (20.0f * q.s0) + fmaxf(z_t, 0.0f);
-  q.diff = 1.0f / (q.u * q.u + 1.0f);
-  q.p = (20.0f * q.s0) * q.diff;
-  return q;
-}
-
-// The logits of one transformed dimension: 2 n_bins + 1 for pwquad, n_bins
-// for pwlin, (scale, shift) for affine.
-__device__ __forceinline__ int logit_width(int kind, int nb) {
-  return kind == KIND_PWQUAD ? 2 * nb + 1 : (kind == KIND_PWLIN ? nb : 2);
-}
-
-__device__ __forceinline__ int round4(int v) { return (v + 3) & ~3; }
-
-// ---------------------------------------------------------------------------
-// The training forward, one tile of blockDim.x samples at a time.  Thread t
-// owns sample t of the tile and column t of every tile in shared memory
-// (rows S1 = blockDim.x + 1 floats apart: odd, so that a warp's accesses to
-// one row, or to rows of its own columns, fall in distinct banks).
-// ---------------------------------------------------------------------------
-
-// Four outputs' weights or biases at p: a float4 of the padded copy in
-// shared memory, or four loads through L1 of the flat buffer at p, p + j1,
-// p + j2, p + j3 (a column past the layer's last reads that one again; its
-// output is not stored).
-template <bool W_SMEM>
-__device__ __forceinline__ float4 load4(const float* __restrict__ p, int j1, int j2, int j3) {
-  if (W_SMEM) return *reinterpret_cast<const float4*>(p);
-  return make_float4(__ldg(p), __ldg(p + j1), __ldg(p + j2), __ldg(p + j3));
-}
-
-// out[j] = b[j] + sum_k in[k] w[k][j] for j < n_out, in this thread's
-// column, four outputs at a time: one activation load feeds four FMAs.  Each
-// output is summed as apply_cell and the backward's recompute sum it (bias
-// first, then k ascending, fmaf), so bins and ReLU masks are theirs.  Input
-// row k is X's row xmap[k] where MAPPED, else in's row k, through a ReLU
-// where RELU_IN (the stats variant keeps pre-ReLU values in the tiles).
-// Row k of w starts k * ld floats in, and output j sits j * step floats
-// along it (step 1 in the padded copy).
-template <bool W_SMEM, bool MAPPED, bool RELU_IN>
-__device__ __forceinline__ void dense(const float* __restrict__ w, const float* __restrict__ b,
-                                      int ld, int step, int fan_in, int n_out, const float* in,
-                                      const int* xmap, float* out, int S1, bool relu) {
-  for (int j0 = 0; j0 < n_out; j0 += 4) {
-    const int left = n_out - j0;
-    const int j1 = min(1, left - 1) * step, j2 = min(2, left - 1) * step;
-    const int j3 = min(3, left - 1) * step;
-    const float* wj = w + j0 * step;
-    const float4 bias = load4<W_SMEM>(b + j0 * step, j1, j2, j3);
-    float a0 = bias.x, a1 = bias.y, a2 = bias.z, a3 = bias.w;
-#pragma unroll 1
-    for (int k = 0; k < fan_in; ++k) {
-      const float h_raw = in[(MAPPED ? xmap[k] : k) * S1];
-      const float h = RELU_IN ? fmaxf(h_raw, 0.0f) : h_raw;
-      const float4 wk = load4<W_SMEM>(wj + k * ld, j1, j2, j3);
-      a0 = fmaf(h, wk.x, a0);
-      a1 = fmaf(h, wk.y, a1);
-      a2 = fmaf(h, wk.z, a2);
-      a3 = fmaf(h, wk.w, a3);
-    }
-    out[j0 * S1] = relu ? fmaxf(a0, 0.0f) : a0;
-    if (left > 1) out[(j0 + 1) * S1] = relu ? fmaxf(a1, 0.0f) : a1;
-    if (left > 2) out[(j0 + 2) * S1] = relu ? fmaxf(a2, 0.0f) : a2;
-    if (left > 3) out[(j0 + 3) * S1] = relu ? fmaxf(a3, 0.0f) : a3;
-  }
-}
-
-// The layer's input: X's rows through xmap (mapped), or a tile's rows,
-// through a ReLU where relu_in.
-template <bool W_SMEM>
-__device__ __forceinline__ void dense_from(bool mapped, bool relu_in,
-                                           const float* __restrict__ w,
-                                           const float* __restrict__ b, int ld, int step,
-                                           int fan_in, int n_out, const float* in,
-                                           const int* xmap, float* out, int S1, bool relu) {
-  if (mapped)
-    dense<W_SMEM, true, false>(w, b, ld, step, fan_in, n_out, in, xmap, out, S1, relu);
-  else if (relu_in)
-    dense<W_SMEM, false, true>(w, b, ld, step, fan_in, n_out, in, xmap, out, S1, relu);
-  else
-    dense<W_SMEM, false, false>(w, b, ld, step, fan_in, n_out, in, xmap, out, S1, relu);
 }
 
 // The rows whose statistics wait for the next block sum: n_x of X's rows
@@ -358,28 +178,24 @@ __device__ __forceinline__ void block_stats(StatRows& st, const float* X, const 
   st = StatRows();
 }
 
-// The wrapper's table (pwquad_train.fwd_table): [n_cells, each cell's
-// position in the descriptor, then for each cell and once more for the end
-// of the flow the X row of each of the n_flow logical dimensions].
+// The wrapper's table (pwquad_train.fwd_table, flow_plan.cuh's row table).
 //
-// W_SMEM: the weights are copied into shared memory, every row of a layer
-// padded to a multiple of four floats (the last layer's per transformed
-// dimension, so each dimension's logits start on a float4); otherwise every
-// thread reads the flat buffer through L1, which leaves the shared memory to
-// more resident blocks.
+// W_SMEM: the weights are copied into shared memory, padded
+// (copy_padded_weights); otherwise every thread reads the flat buffer
+// through L1, which leaves the shared memory to more resident blocks.
 template <bool STATS, bool W_SMEM>
 __global__ void __launch_bounds__(FWD_MAX_BLOCK, 2)
 train_fwd_kernel(const int* __restrict__ desc, int desc_len, const int* __restrict__ tab,
                  int tab_len, const float* __restrict__ weights, int n_wpad,
                  const float* __restrict__ latents, float* __restrict__ x_out,
                  float* __restrict__ jac_out, float* __restrict__ stage,
-                 double* __restrict__ stats_partial, int n_stat_rows, long long n, int n_flow,
-                 int rows_a, int rows_b) {
+                 double* __restrict__ stats_partial, int n_stat_rows, int part_rows,
+                 long long n, int n_flow, int rows_a, int rows_b) {
   extern __shared__ double smem_d[];
   const int S = blockDim.x, S1 = S + 1, t = threadIdx.x;
   double* acc = smem_d;                            // [n_stat_rows] with STATS
-  double* part = acc + (STATS ? n_stat_rows : 0);  // [2 S] with STATS
-  int* D = reinterpret_cast<int*>(part + (STATS ? 2 * S : 0));
+  double* part = acc + (STATS ? n_stat_rows : 0);  // [2 part_rows] with STATS
+  int* D = reinterpret_cast<int*>(part + (STATS ? 2 * part_rows : 0));
   int* T = D + desc_len;
   float* W_s = reinterpret_cast<float*>(D + round4(desc_len + tab_len));  // [n_wpad]
   float* X = W_s + (W_SMEM ? n_wpad : 0);  // [n_flow][S1]: the state
@@ -395,57 +211,15 @@ train_fwd_kernel(const int* __restrict__ desc, int desc_len, const int* __restri
   const int* maps = T + 1 + n_cells;
 
   if (t == 0) {  // the table, the tiles and the counts must fit the plan
-    bool bad = D[0] != n_flow || tab_len != 1 + n_cells + (n_cells + 1) * n_flow;
-    int wq = 0, rows = 0;
-    for (int c = 0; c < n_cells && !bad; ++c) {
-      const int p = cell_pos[c];
-      if (p < 2 || p + 6 > desc_len || D[p] != OP_CELL) {
-        bad = true;
-        break;
-      }
-      const int pt = D[p + 2], n_layers = D[p + 5];
-      const int width = logit_width(D[p + 1], D[p + 3]);
-      rows += 2 * pt;
-      for (int l = 0; l < n_layers; ++l) {
-        const int* L = D + p + 6 + 5 * l;
-        if (l < n_layers - 1) {
-          bad |= L[1] > (((n_layers - 2 - l) & 1) ? rows_b : rows_a);
-          wq += (L[0] + 1) * round4(L[1]);
-          rows += L[2] ? 2 * L[1] : 0;
-        } else {
-          bad |= width > rows_b;
-          wq += (L[0] + 1) * (n_flow - pt) * round4(width);
-        }
-      }
-    }
-    if (bad || (W_SMEM && wq != n_wpad) || (STATS && rows != n_stat_rows)) __trap();
+    int wq, rows, max_rows;
+    const bool fit = tiles_fit(D, desc_len, tab_len, cell_pos, n_cells, n_flow, rows_a, rows_b,
+                               &wq, &rows, &max_rows);
+    // a block sum's rows, and at least S, fit block_stats' partial sums
+    if (!fit || (W_SMEM && wq != n_wpad)
+        || (STATS && (rows != n_stat_rows || max_rows > part_rows || part_rows < S)))
+      __trap();
   }
-  if (W_SMEM) {  // the padded copy, layer after layer in plan order
-    int wp = 0;
-    for (int c = 0; c < n_cells; ++c) {
-      const int p = cell_pos[c];
-      const int kind = D[p + 1], t_dims = n_flow - D[p + 2], n_layers = D[p + 5];
-      const int width = logit_width(kind, D[p + 3]), width4 = round4(width);
-      for (int l = 0; l < n_layers; ++l) {
-        const int* L = D + p + 6 + 5 * l;
-        const int fan_in = L[0], fan_out = L[1];
-        const bool last = l == n_layers - 1;
-        const int ld = last ? t_dims * width4 : round4(fan_out);
-        for (int e = t; e < (fan_in + 1) * ld; e += S) {
-          const int r = e / ld, pc = e - r * ld;
-          int col = pc;
-          bool pad = pc >= fan_out;
-          if (last) {  // column pc is logit j of dimension ti
-            const int ti = pc / width4, j = pc - ti * width4;
-            pad = j >= width;
-            col = kind == KIND_AFFINE ? ti + j * t_dims : ti * width + j;
-          }
-          W_s[wp + e] = pad ? 0.0f : weights[(r < fan_in ? L[3] + r * fan_out : L[4]) + col];
-        }
-        wp += (fan_in + 1) * ld;
-      }
-    }
-  }
+  if (W_SMEM) copy_padded_weights(D, cell_pos, n_cells, n_flow, weights, W_s);
 
   const int* map_end = maps + n_cells * n_flow;
   const bool io4 = ((reinterpret_cast<size_t>(latents) | reinterpret_cast<size_t>(x_out)) & 15) == 0;
@@ -457,23 +231,8 @@ train_fwd_kernel(const int* __restrict__ desc, int desc_len, const int* __restri
     const long long i = base + t;
     const bool valid = t < nv;
     // the tile's latents, one contiguous run, into X (a lane past n: 0.5)
-    const float* src = latents + base * n_flow;
     __syncthreads();  // the weights are copied; the last tile's x is read out
-    if (io4 && nv == S) {
-      for (int e4 = t; e4 < S * n_flow / 4; e4 += S) {
-        const float4 v = reinterpret_cast<const float4*>(src)[e4];
-        const float vs[4] = {v.x, v.y, v.z, v.w};
-        for (int c = 0; c < 4; ++c) {
-          const int e = 4 * e4 + c, s = e / n_flow;
-          X[(e - s * n_flow) * S1 + s] = vs[c];
-        }
-      }
-    } else {
-      for (int e = t; e < S * n_flow; e += S) {
-        const int s = e / n_flow;
-        X[(e - s * n_flow) * S1 + s] = s < nv ? src[e] : 0.5f;
-      }
-    }
+    load_tile(X, latents + base * n_flow, nv, n_flow, S1, io4);
     __syncthreads();
 
     float jac = 1.0f;
@@ -525,67 +284,16 @@ train_fwd_kernel(const int* __restrict__ desc, int desc_len, const int* __restri
       }
       if (STATS && st.count() > 0) flush();
 
-      // the last layer, one transformed dimension's logits at a time into B
-      const int fin = L[0], fout = L[1];
-      const int t_dims = n_flow - pt, width = logit_width(kind, nb);
-      const int ld = t_dims * round4(width);
-      for (int ti = 0; ti < t_dims; ++ti) {
-        if (W_SMEM) {
-          const float* w = W_s + wp + ti * round4(width);
-          dense_from<true>(mapped, relu_in, w, w + fin * ld, ld, 1, fin, width, h, m, Bc, S1,
-                           false);
-        } else {
-          // this dimension's logit columns: a contiguous run, or (ti, t + ti)
-          const int col0 = kind == KIND_AFFINE ? ti : ti * width;
-          dense_from<false>(mapped, relu_in, weights + L[3] + col0, weights + L[4] + col0,
-                            fout, kind == KIND_AFFINE ? t_dims : 1, fin, width, h, m, Bc, S1,
-                            false);
-        }
-        float* xo = Xc + m[pt + ti] * S1;
-        const float x_raw = *xo;
-        const TileCol z = {Bc, S1};
-        float y;
-        if (kind == KIND_PWQUAD) {
-          const PwquadDim q = pwquad_dim(z, nb, act, x_raw);
-          y = 0.5f * q.a * q.a * (q.v_hi - q.v_lo) * q.w_b + q.a * q.v_lo * q.w_b + q.vw_b;
-          jac *= q.p;
-        } else if (kind == KIND_PWLIN) {
-          for (int k = 0; k < nb; ++k) z[k] = positivity(z[k], act);
-          const PwlinDim r = pwlin_dim(z, nb, x_raw);
-          float below = 0.0f;
-          for (int k = 0; k < r.bin; ++k) below += z[k];
-          y = r.p * r.alpha + below / r.qtot;
-          jac *= r.p;
-        } else {
-          const AffineDim q = affine_dim(z[0], z[1], x_raw);
-          y = atanf(q.u) / 1.57079632679489662f;
-          jac *= q.p;
-        }
-        *xo = y;
-      }
-      if (kind == KIND_AFFINE) jac *= TWO_OVER_PI;  // 2/pi once per cell (reference quirk)
-      if (W_SMEM) wp += (fin + 1) * ld;
+      // the last layer and the transform, one dimension at a time
+      const int used = last_layer<W_SMEM>(L, kind, pt, nb, act, n_flow, mapped, relu_in, h, m,
+                                          Xc, Bc, S1, W_s + wp, weights, jac);
+      if (W_SMEM) wp += used;
     }
     if (valid) jac_out[i] = jac;
 
     // x, one contiguous run, out of X
     __syncthreads();
-    float* dst = x_out + base * n_flow;
-    if (io4 && nv == S) {
-      for (int e4 = t; e4 < S * n_flow / 4; e4 += S) {
-        float vs[4];
-        for (int c = 0; c < 4; ++c) {
-          const int e = 4 * e4 + c, s = e / n_flow;
-          vs[c] = X[map_end[e - s * n_flow] * S1 + s];
-        }
-        reinterpret_cast<float4*>(dst)[e4] = make_float4(vs[0], vs[1], vs[2], vs[3]);
-      }
-    } else {
-      for (int e = t; e < nv * n_flow; e += S) {
-        const int s = e / n_flow;
-        dst[e] = X[map_end[e - s * n_flow] * S1 + s];
-      }
-    }
+    store_tile(x_out + base * n_flow, X, map_end, nv, n_flow, S1, io4);
   }
   if (STATS) {
     __syncthreads();
@@ -672,6 +380,150 @@ __device__ float pwlin_dim_vjp(const float* z, int nb, int act, float x,
 
 __device__ float affine_dim_vjp(float z_s, float z_t, float x, float ybar,
                                 float jj, float* zbar) {
+  const AffineDim q = affine_dim(z_s, z_t, x);
+  const float pbar = jj / q.p;  // jac carries the cell's 2/pi, jac / p keeps it
+  // the true derivative of atan, 1 / (1 + u^2)
+  const float ubar = ybar * TWO_OVER_PI * q.diff
+                     + pbar * (20.0f * q.s0) * (-2.0f * q.u) * q.diff * q.diff;
+  zbar[0] = ubar * 20.0f * x * q.s0 + pbar * q.p;
+  zbar[1] = z_t > 0.0f ? ubar : 0.0f;
+  return ubar * 20.0f * q.s0;
+}
+
+// The workspace kernel's per-thread arrays: plan-sized slices of a device
+// workspace the wrapper allocates, element k of grid thread g at k * G + g
+// (G the grid's threads), so that a warp's accesses coalesce as local
+// memory's do.  Its VJPs, cell walk and kernel repeat the local-array ones
+// above with the arrays as WsCol columns: written as one template over
+// both, the local-array instantiation spilled 116 B and ran the camel
+// backward 20% slower (PERF.md section 6).
+enum BwdArray {
+  ARR_XBAR, ARR_XIN, ARR_TMP, ARR_ACTS, ARR_RA, ARR_RB, ARR_Z, ARR_ZBAR,
+  ARR_VU, ARR_VBAR, ARR_UBAR, ARR_G, ARR_Q, ARR_PDFBAR
+};
+
+struct BwdLayout {  // the slice's sizes: a cell's layer inputs, a fan_in, logits, bins
+  int n_flow, acts, hidden, width, bins;
+};
+
+// Where each array starts in a thread's slice (floats): xbar, xin and the
+// permutation's tmp [n_flow], a cell's layer inputs [acts], the two hidden
+// cotangents [hidden], one dimension's logits and their cotangent [width],
+// then the VJPs' arrays, pwquad's vu [2 bins + 1], vbar [bins + 1], ubar
+// [bins], g [bins + 1], or pwlin's q and pdfbar [bins].  The wrapper counts
+// the same (pwquad_train.bwd_workspace_floats).
+__host__ __device__ __forceinline__ long long bwd_offset(const BwdLayout& o, BwdArray which) {
+  const long long vjp = 3LL * o.n_flow + o.acts + 2LL * o.hidden + 2LL * o.width;
+  switch (which) {
+    case ARR_XBAR: return 0;
+    case ARR_XIN: return o.n_flow;
+    case ARR_TMP: return 2LL * o.n_flow;
+    case ARR_ACTS: return 3LL * o.n_flow;
+    case ARR_RA: return 3LL * o.n_flow + o.acts;
+    case ARR_RB: return 3LL * o.n_flow + o.acts + o.hidden;
+    case ARR_Z: return 3LL * o.n_flow + o.acts + 2LL * o.hidden;
+    case ARR_ZBAR: return 3LL * o.n_flow + o.acts + 2LL * o.hidden + o.width;
+    case ARR_VU: case ARR_Q: return vjp;
+    case ARR_VBAR: return vjp + 2LL * o.bins + 1;
+    case ARR_UBAR: return vjp + 3LL * o.bins + 2;
+    case ARR_G: return vjp + 4LL * o.bins + 2;
+    case ARR_PDFBAR: return vjp + o.bins;
+  }
+  return 0;
+}
+
+// Floats of one thread's slice.
+__host__ __device__ __forceinline__ long long bwd_slice_floats(const BwdLayout& o) {
+  return bwd_offset(o, ARR_VU) + 5LL * o.bins + 3;
+}
+
+// A thread's slice of the workspace: element k of array `which` at
+// base + (offset + k) * G.
+struct BwdWorkspace {
+  BwdLayout o;
+  float* base;  // the workspace, at this thread's column
+  long long G;  // the grid's threads
+  __device__ __forceinline__ WsCol col(BwdArray which) const {
+    return {base + bwd_offset(o, which) * G, G};
+  }
+};
+
+#define SCRATCH(name, which) const WsCol name = sc.col(which)
+
+__device__ float pwquad_dim_vjp_ws(WsCol z, int nb, int act, float x_raw, float ybar,
+                                   float jj, WsCol zbar, const BwdWorkspace& sc) {
+  SCRATCH(vu, ARR_VU);
+  for (int k = 0; k < 2 * nb + 1; ++k) vu[k] = z[k];
+  const PwquadDim q = pwquad_dim(vu, nb, act, x_raw);
+  const auto v = vu;
+  const auto u = vu + nb + 1;
+  const int b = q.bin;
+  const float pbar = jj / q.p;
+  const float a = q.a, dv = q.v_hi - q.v_lo, inv_wb = 1.0f / q.w_b;
+
+  // through y = a^2/2 dv w_b + a v_lo w_b + S_b and p = v_lo + dv a
+  const float abar = ybar * q.p * q.w_b + pbar * dv;
+  const float c_vlo = ybar * q.w_b * (a - 0.5f * a * a) + pbar * (1.0f - a);
+  const float c_vhi = ybar * q.w_b * (0.5f * a * a) + pbar * a;
+  const float c_ub_sel = ybar * (0.5f * a * a * dv + a * q.v_lo) - abar * a * inv_wb;
+  const float c_u_pre = -abar * inv_wb;  // through the left edge sum_{j<b} u_j
+  SCRATCH(vbar, ARR_VBAR);
+  SCRATCH(ubar, ARR_UBAR);
+  SCRATCH(g, ARR_G);
+  for (int k = 0; k <= nb; ++k) vbar[k] = 0.0f;
+  for (int k = 0; k < nb; ++k) {
+    const float trap = k < b ? ybar * 0.5f * u[k] : 0.0f;  // through S_b
+    vbar[k] += (k == b ? c_vlo : 0.0f) + trap;
+    vbar[k + 1] += (k == b ? c_vhi : 0.0f) + trap;
+    ubar[k] = k == b ? c_ub_sel
+                     : (k < b ? c_u_pre + ybar * 0.5f * (v[k] + v[k + 1]) : 0.0f);
+  }
+
+  // trapezoid normalisation v_k = g_k / T, T = sum_k (g_k + g_{k+1}) / 2 u_k
+  const float inv_T = 1.0f / q.vnorm;
+  float svv = 0.0f;
+  for (int k = 0; k <= nb; ++k) svv += vbar[k] * v[k];
+  const float Tbar = -svv * inv_T;
+  for (int k = 0; k <= nb; ++k) {
+    g[k] = positivity(z[k], act);
+    float gbar = vbar[k] * inv_T;
+    if (k > 0) gbar += Tbar * 0.5f * u[k - 1];
+    if (k < nb) gbar += Tbar * 0.5f * u[k];
+    zbar[k] = gbar * positivity_grad(z[k], act);
+  }
+  for (int k = 0; k < nb; ++k) ubar[k] += Tbar * 0.5f * (g[k] + g[k + 1]);
+
+  // width normalisation u_k = e_k / W
+  float suu = 0.0f;
+  for (int k = 0; k < nb; ++k) suu += ubar[k] * u[k];
+  for (int k = 0; k < nb; ++k)
+    zbar[nb + 1 + k] = (ubar[k] - suu) * positivity_grad(z[nb + 1 + k], act) / q.wtot;
+
+  // x is clamped to CLAMP_HI: no cotangent above it
+  return x_raw < CLAMP_HI ? ybar * q.p + pbar * dv * inv_wb : 0.0f;
+}
+
+__device__ float pwlin_dim_vjp_ws(WsCol z, int nb, int act, float x, float ybar, float jj,
+                                  WsCol zbar, const BwdWorkspace& sc) {
+  SCRATCH(q, ARR_Q);
+  SCRATCH(pdfbar, ARR_PDFBAR);
+  for (int k = 0; k < nb; ++k) q[k] = positivity(z[k], act);
+  const PwlinDim r = pwlin_dim(q, nb, x);
+  const float pbar = jj / r.p;
+  // y = pdf_b alpha + sum_{j<b} pdf_j / n, p = pdf_b, pdf_k = n q_k / Q
+  float s = 0.0f;
+  for (int k = 0; k < nb; ++k) {
+    pdfbar[k] = k == r.bin ? ybar * r.alpha + pbar : (k < r.bin ? ybar / (float)nb : 0.0f);
+    s += pdfbar[k] * (q[k] / (r.qtot / (float)nb));
+  }
+  s /= (float)nb;
+  for (int k = 0; k < nb; ++k)
+    zbar[k] = (pdfbar[k] - s) * (float)nb * positivity_grad(z[k], act) / r.qtot;
+  return ybar * r.p;  // dy/dx = pdf_b
+}
+
+__device__ float affine_dim_vjp_ws(float z_s, float z_t, float x, float ybar, float jj,
+                                   WsCol zbar) {
   const AffineDim q = affine_dim(z_s, z_t, x);
   const float pbar = jj / q.p;  // jac carries the cell's 2/pi, jac / p keeps it
   // the true derivative of atan, 1 / (1 + u^2)
@@ -941,6 +793,201 @@ train_bwd_kernel(const int* __restrict__ desc, int desc_len,
     grad_partial[(long long)blockIdx.x * n_weights + r] = acc[r];
 }
 
+// Backward through the cell whose descriptor starts at D[p]: xin is the
+// cell's input (from `stage`), xbar the cotangent of its output, replaced by
+// that of its input.  Every thread of the block calls it (block_dw's
+// barriers); a lane past n has valid false and writes zeros to the tiles.
+__device__ void cell_vjp_ws(const int* D, int p, const float* __restrict__ W, WsCol xin,
+                            WsCol xbar, float jj, float* acc, const BwdTiles& tl, bool valid,
+                            int n_flow, const BwdWorkspace& sc) {
+  const int kind = D[p + 1], pt = D[p + 2], nb = D[p + 3], act = D[p + 4];
+  const int n_layers = D[p + 5];
+  const int* L = D + p + 6;
+
+  // forward through every layer but the last, keeping each layer's input
+  SCRATCH(acts, ARR_ACTS);
+  for (int k = 0; k < pt; ++k) acts[k] = xin[k];
+  int off = 0;
+  for (int l = 0; l < n_layers - 1; ++l, L += 5) {
+    const int fan_in = L[0], fan_out = L[1], relu = L[2];
+    const float* w = W + L[3];
+    const float* b = W + L[4];
+    const auto h = acts + off;
+    const auto o = acts + off + fan_in;
+    for (int j = 0; j < fan_out; ++j) {
+      float s = b[j];
+      for (int k = 0; k < fan_in; ++k) s = fmaf(h[k], w[k * fan_out + j], s);
+      o[j] = relu ? fmaxf(s, 0.0f) : s;
+    }
+    off += fan_in;
+  }
+
+  // the last layer, one transformed dimension at a time: its input, and the
+  // ones row of the bias, stay in H for every dimension's product
+  const int tid = threadIdx.x;
+  const auto h = acts + off;
+  const int fin = L[0], fout = L[1];
+  const float* wl = W + L[3];
+  for (int i = 0; i < fin; ++i) tl.H[i * tl.stride + tid] = valid ? h[i] : 0.0f;
+  tl.H[fin * tl.stride + tid] = valid ? 1.0f : 0.0f;
+  SCRATCH(ra, ARR_RA);
+  SCRATCH(rb, ARR_RB);
+  auto r = ra;  // cotangent of the last layer's input
+  for (int k = 0; k < fin; ++k) r[k] = 0.0f;
+  const int t = n_flow - pt;
+  const int width = logit_width(kind, nb);
+  SCRATCH(z, ARR_Z);
+  SCRATCH(zbar, ARR_ZBAR);
+  for (int ti = 0; ti < t; ++ti) {
+    // this dimension's logit columns: a contiguous run, or (ti, t + ti)
+    const int col0 = kind == KIND_AFFINE ? ti : ti * width;
+    const int step = kind == KIND_AFFINE ? t : 1;
+    for (int k = 0; k < width; ++k) z[k] = last_logit(W, L, h, col0 + k * step);
+    const float ybar = xbar[pt + ti];
+    float xb;
+    if (kind == KIND_PWQUAD) {
+      xb = pwquad_dim_vjp_ws(z, nb, act, xin[pt + ti], ybar, jj, zbar, sc);
+    } else if (kind == KIND_PWLIN) {
+      xb = pwlin_dim_vjp_ws(z, nb, act, xin[pt + ti], ybar, jj, zbar, sc);
+    } else {
+      xb = affine_dim_vjp_ws(z[0], z[1], xin[pt + ti], ybar, jj, zbar);
+    }
+    xbar[pt + ti] = xb;
+    for (int k = 0; k < width; ++k) {
+      const int col = col0 + k * step;
+      const float gk = zbar[k];
+      tl.G[k * tl.stride + tid] = valid ? gk : 0.0f;
+      for (int i = 0; i < fin; ++i) r[i] = fmaf(wl[i * fout + col], gk, r[i]);
+    }
+    __syncthreads();
+    block_dw(tl, fin + 1, width, acc, L[3], L[4], fout, col0, step);
+  }
+
+  // the layers before it, last first
+  auto r_in = rb;
+  for (int l = n_layers - 2; l >= 0; --l) {
+    L -= 5;
+    const int fan_in = L[0], fan_out = L[1], relu = L[2];
+    const float* w = W + L[3];
+    off -= fan_in;
+    const auto h_in = acts + off;
+    const auto h_out = acts + off + fan_in;
+    for (int o = 0; o < fan_out; ++o) {
+      if (relu && !(h_out[o] > 0.0f)) r[o] = 0.0f;
+      tl.G[o * tl.stride + tid] = valid ? r[o] : 0.0f;
+    }
+    for (int i = 0; i < fan_in; ++i) {
+      float s = 0.0f;
+      for (int o = 0; o < fan_out; ++o) s = fmaf(w[i * fan_out + o], r[o], s);
+      r_in[i] = s;
+      tl.H[i * tl.stride + tid] = valid ? h_in[i] : 0.0f;
+    }
+    tl.H[fan_in * tl.stride + tid] = valid ? 1.0f : 0.0f;
+    __syncthreads();
+    block_dw(tl, fan_in + 1, fan_out, acc, L[3], L[4], fan_out, 0, 1);
+    const auto tmp = r;
+    r = r_in;
+    r_in = tmp;
+  }
+  // the pass-through dims: their own cotangent plus the conditioner's
+  for (int k = 0; k < pt; ++k) xbar[k] += r[k];
+}
+
+// train_bwd_kernel with the per-thread arrays as slices of `ws`, laid out
+// for (n_flow, ws_acts, ws_hidden, ws_width, ws_bins): for plans beyond the
+// local arrays' sizes.
+template <bool W_SMEM>
+__global__ void __launch_bounds__(BWD_MAX_BLOCK)
+train_bwd_ws_kernel(const int* __restrict__ desc, int desc_len,
+                 const float* __restrict__ weights, int n_weights,
+                 const float* __restrict__ stage, const float* __restrict__ jac_in,
+                 const float* __restrict__ jbar_in, const float* __restrict__ xbar0,
+                 float* __restrict__ grad_partial, float* __restrict__ wbar, long long n,
+                 int n_ops, int h_rows, int g_rows, float* __restrict__ ws, int ws_acts,
+                 int ws_hidden, int ws_width, int ws_bins) {
+  extern __shared__ double smem_d[];
+  float* acc = reinterpret_cast<float*>(smem_d);  // [n_weights]
+  float* W_s = acc + n_weights;                   // [n_weights] with W_SMEM
+  const float* __restrict__ W = W_SMEM ? W_s : weights;
+  int* D = reinterpret_cast<int*>(W_s + (W_SMEM ? n_weights : 0));
+  int* op_pos = D + desc_len;     // [n_ops]: where each op starts
+  int* n_cells = op_pos + n_ops;  // [1]
+  BwdTiles tl;
+  tl.stride = blockDim.x + 1;
+  tl.H = reinterpret_cast<float*>(n_cells + 1);
+  tl.G = tl.H + h_rows * tl.stride;
+  tl.part = tl.G + g_rows * tl.stride;
+  if (W_SMEM)
+    for (int i = threadIdx.x; i < n_weights; i += blockDim.x) W_s[i] = weights[i];
+  for (int i = threadIdx.x; i < desc_len; i += blockDim.x) D[i] = desc[i];
+  for (int i = threadIdx.x; i < n_weights; i += blockDim.x) acc[i] = 0.0f;
+  __syncthreads();
+  if (threadIdx.x == 0) {  // where each op starts, to walk them backwards
+    if (D[1] != n_ops) __trap();
+    int p = 2, nc = 0;
+    for (int op = 0; op < n_ops; ++op) {
+      op_pos[op] = p;
+      if (D[p] == OP_PERM) {
+        p += 1 + D[0];
+        continue;
+      }
+      // the tiles must hold every layer's input and ones row, and every
+      // hidden layer's output or transformed dimension's logits; the
+      // per-thread arrays every layer input and one dimension's logits
+      const int kind = D[p + 1], nb = D[p + 3], n_layers = D[p + 5];
+      const int width = logit_width(kind, nb);
+      int acts = 0;
+      for (int l = 0; l < n_layers; ++l) {
+        const int* L = D + p + 6 + 5 * l;
+        if (L[0] + 1 > h_rows || (l < n_layers - 1 ? L[1] : width) > g_rows) __trap();
+        if (L[0] > ws_hidden) __trap();
+        acts += L[0];
+      }
+      if (acts > ws_acts || width > ws_width || (kind != KIND_AFFINE && nb > ws_bins))
+        __trap();
+      p += 6 + 5 * n_layers;
+      ++nc;
+    }
+    *n_cells = nc;
+  }
+  __syncthreads();
+
+  const int n_flow = D[0];
+  BwdWorkspace sc;
+  sc.o = {n_flow, ws_acts, ws_hidden, ws_width, ws_bins};
+  sc.base = ws + (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  sc.G = (long long)gridDim.x * blockDim.x;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long base = (long long)blockIdx.x * blockDim.x; base < n; base += stride) {
+    const long long i = base + threadIdx.x;
+    const bool valid = i < n;
+    SCRATCH(xbar, ARR_XBAR);
+    SCRATCH(xin, ARR_XIN);
+    for (int d = 0; d < n_flow; ++d) xbar[d] = valid ? xbar0[i * n_flow + d] : 0.0f;
+    const float jj = valid ? jbar_in[i] * jac_in[i] : 0.0f;
+    int cell = *n_cells;
+    for (int op = n_ops - 1; op >= 0; --op) {
+      const int p = op_pos[op];
+      if (D[p] == OP_PERM) {  // x_new[d] = x[src[d]]: xbar[src[d]] = xbar_new[d]
+        SCRATCH(tmp, ARR_TMP);
+        for (int d = 0; d < n_flow; ++d) tmp[D[p + 1 + d]] = xbar[d];
+        for (int d = 0; d < n_flow; ++d) xbar[d] = tmp[d];
+        continue;
+      }
+      --cell;
+      for (int d = 0; d < n_flow; ++d)
+        xin[d] = valid ? stage[((long long)cell * n_flow + d) * n + i] : 0.5f;
+      cell_vjp_ws(D, p, W, xin, xbar, jj, acc, tl, valid, n_flow, sc);
+    }
+    if (valid) {
+      for (int d = 0; d < n_flow; ++d) wbar[i * n_flow + d] = xbar[d];
+    }
+  }
+  __syncthreads();
+  for (int r = threadIdx.x; r < n_weights; r += blockDim.x)
+    grad_partial[(long long)blockIdx.x * n_weights + r] = acc[r];
+}
+
 static int set_smem(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -952,34 +999,58 @@ static int launch_fwd(int n_blocks, int block, size_t smem, cudaStream_t stream,
                       const int* desc, int desc_len, const int* tab, int tab_len,
                       const float* weights, int n_wpad, const float* latents, float* x,
                       float* jac, float* stage, double* stats_partial, int n_stat_rows,
-                      long long n, int n_flow, int rows_a, int rows_b) {
+                      int part_rows, long long n, int n_flow, int rows_a, int rows_b) {
   const int e = set_smem((const void*)train_fwd_kernel<STATS, W_SMEM>, smem);
   if (e) return e;
   train_fwd_kernel<STATS, W_SMEM><<<n_blocks, block, smem, stream>>>(
       desc, desc_len, tab, tab_len, weights, n_wpad, latents, x, jac, stage, stats_partial,
-      n_stat_rows, n, n_flow, rows_a, rows_b);
+      n_stat_rows, part_rows, n, n_flow, rows_a, rows_b);
+  return (int)cudaGetLastError();
+}
+
+template <bool W_SMEM, bool WS>
+static int launch_bwd(int n_blocks, int block, size_t smem, cudaStream_t stream,
+                      const int* desc, int desc_len, const float* weights, int n_weights,
+                      const float* stage, const float* jac, const float* jbar,
+                      const float* xbar0, float* grad_partial, float* wbar, long long n,
+                      int n_ops, int h_rows, int g_rows, float* ws, const int* ws_sizes) {
+  if constexpr (WS) {
+    const int e = set_smem((const void*)train_bwd_ws_kernel<W_SMEM>, smem);
+    if (e) return e;
+    train_bwd_ws_kernel<W_SMEM><<<n_blocks, block, smem, stream>>>(
+        desc, desc_len, weights, n_weights, stage, jac, jbar, xbar0, grad_partial, wbar, n,
+        n_ops, h_rows, g_rows, ws, ws_sizes[0], ws_sizes[1], ws_sizes[2], ws_sizes[3]);
+  } else {
+    const int e = set_smem((const void*)train_bwd_kernel<W_SMEM>, smem);
+    if (e) return e;
+    train_bwd_kernel<W_SMEM><<<n_blocks, block, smem, stream>>>(
+        desc, desc_len, weights, n_weights, stage, jac, jbar, xbar0, grad_partial, wbar, n,
+        n_ops, h_rows, g_rows);
+  }
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-// The compiled caps and launch shape, so the wrapper can check its copy.
+// The backward's local-array sizes and the launch shapes, so the wrapper
+// can check its copy.
 int nf_pwquad_train_limits(int* out) {
   out[0] = MAX_FLOW;
   out[1] = MAX_HIDDEN;
   out[2] = MAX_BINS;
   out[3] = MAX_ACTS;
-  out[4] = MAX_OPS;
-  out[5] = FWD_MAX_BLOCK;
-  out[6] = BWD_MAX_BLOCK;
+  out[4] = FWD_MAX_BLOCK;
+  out[5] = BWD_MAX_BLOCK;
   return 0;
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 // latents [n, n_flow] f32 -> x [n, n_flow], jac [n], stage [n_cells, n_flow, n];
-// with stats_partial non-null, also the [n_blocks, n_stat_rows] double sums.
+// with stats_partial non-null, also the [n_blocks, n_stat_rows] double sums,
+// the block sums' partial pairs taking 2 part_rows doubles (at least 2 block:
+// the most rows one block sum takes, or block if more).
 // tab is the wrapper's table (pwquad_train.fwd_table), in blocks of `block`
-// threads (a multiple of 32, from 128 to FWD_MAX_BLOCK), with the weights
+// threads (a multiple of 32, at most FWD_MAX_BLOCK), with the weights
 // padded into shared memory (n_wpad floats) if w_smem is non-zero.  rows_a /
 // rows_b are the rows of the A and B tiles the plan needs, and smem the
 // block's bytes as the wrapper computed them
@@ -987,33 +1058,33 @@ int nf_pwquad_train_limits(int* out) {
 int nf_pwquad_train_fwd(const int* desc, int desc_len, const int* tab, int tab_len,
                         const float* weights, int n_wpad, const float* latents, float* x,
                         float* jac, float* stage, double* stats_partial, int n_stat_rows,
-                        long long n, int n_flow, int n_blocks, int block, int w_smem,
-                        int rows_a, int rows_b, long long smem, void* stream) {
+                        int part_rows, long long n, int n_flow, int n_blocks, int block,
+                        int w_smem, int rows_a, int rows_b, long long smem, void* stream) {
   if (n <= 0) return 0;
   const bool stats = stats_partial != nullptr;
-  const size_t need = sizeof(double) * (stats ? (size_t)n_stat_rows + 2 * (size_t)block : 0)
+  const size_t need = sizeof(double) * (stats ? (size_t)n_stat_rows + 2 * (size_t)part_rows : 0)
                       + sizeof(float) * ((((size_t)desc_len + tab_len + 3) & ~(size_t)3)
                                          + (w_smem ? (size_t)n_wpad : 0)
                                          + (size_t)(n_flow + rows_a + rows_b) * (block + 1));
-  if ((size_t)smem != need || block % 32 || block < 128 || block > FWD_MAX_BLOCK
-      || n_flow < 1 || n_flow > MAX_FLOW || rows_a < 0 || rows_b < 1
-      || (stats && n_stat_rows % 2))
+  if ((size_t)smem != need || block % 32 || block < 32 || block > FWD_MAX_BLOCK
+      || n_flow < 1 || rows_a < 0 || rows_b < 1
+      || (stats && (n_stat_rows % 2 || part_rows < block)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (stats && w_smem)
     return launch_fwd<true, true>(n_blocks, block, need, s, desc, desc_len, tab, tab_len,
                                   weights, n_wpad, latents, x, jac, stage, stats_partial,
-                                  n_stat_rows, n, n_flow, rows_a, rows_b);
+                                  n_stat_rows, part_rows, n, n_flow, rows_a, rows_b);
   if (stats)
     return launch_fwd<true, false>(n_blocks, block, need, s, desc, desc_len, tab, tab_len,
                                    weights, n_wpad, latents, x, jac, stage, stats_partial,
-                                   n_stat_rows, n, n_flow, rows_a, rows_b);
+                                   n_stat_rows, part_rows, n, n_flow, rows_a, rows_b);
   if (w_smem)
     return launch_fwd<false, true>(n_blocks, block, need, s, desc, desc_len, tab, tab_len,
-                                   weights, n_wpad, latents, x, jac, stage, nullptr, 0, n,
+                                   weights, n_wpad, latents, x, jac, stage, nullptr, 0, 0, n,
                                    n_flow, rows_a, rows_b);
   return launch_fwd<false, false>(n_blocks, block, need, s, desc, desc_len, tab, tab_len,
-                                  weights, n_wpad, latents, x, jac, stage, nullptr, 0, n,
+                                  weights, n_wpad, latents, x, jac, stage, nullptr, 0, 0, n,
                                   n_flow, rows_a, rows_b);
 }
 
@@ -1023,12 +1094,17 @@ int nf_pwquad_train_fwd(const int* desc, int desc_len, const int* tab, int tab_l
 // the weights in shared memory if w_smem is non-zero.  n_ops is the plan's
 // op count, h_rows / g_rows the rows of the H and G tiles it needs, and smem
 // the block's bytes as the wrapper computed them
-// (pwquad_train.train_bwd_smem_bytes); a mismatch is refused.
+// (pwquad_train.train_bwd_smem_bytes); a mismatch is refused.  With ws
+// non-null the per-thread arrays live in ws, ws_len floats, laid out for
+// ws_sizes = (acts, hidden, width, bins) (pwquad_train.train_bwd_workspace);
+// a workspace smaller than the grid needs is refused, and so is a null ws
+// for n_flow beyond the local arrays.
 int nf_pwquad_train_bwd(const int* desc, int desc_len, const float* weights,
                         int n_weights, const float* stage, const float* jac,
                         const float* jbar, const float* xbar0, float* grad_partial,
                         float* wbar, long long n, int n_blocks, int block, int w_smem,
-                        int n_ops, int h_rows, int g_rows, long long smem, void* stream) {
+                        int n_ops, int h_rows, int g_rows, long long smem, float* ws,
+                        long long ws_len, int n_flow, const int* ws_sizes, void* stream) {
   if (n <= 0) return 0;
   const size_t need = sizeof(float) * ((w_smem ? 2 : 1) * (size_t)n_weights
                                        + (size_t)desc_len + (size_t)n_ops + 1
@@ -1037,20 +1113,33 @@ int nf_pwquad_train_bwd(const int* desc, int desc_len, const float* weights,
   if ((size_t)smem != need || h_rows < 1 || g_rows < 1 || block % 32 || block < 32
       || block > BWD_MAX_BLOCK)
     return (int)cudaErrorInvalidValue;
-  const void* kernel = w_smem ? (const void*)train_bwd_kernel<true>
-                              : (const void*)train_bwd_kernel<false>;
-  const int e = set_smem(kernel, need);
-  if (e) return e;
-  if (w_smem) {
-    train_bwd_kernel<true><<<n_blocks, block, need, (cudaStream_t)stream>>>(
-        desc, desc_len, weights, n_weights, stage, jac, jbar, xbar0, grad_partial,
-        wbar, n, n_ops, h_rows, g_rows);
-  } else {
-    train_bwd_kernel<false><<<n_blocks, block, need, (cudaStream_t)stream>>>(
-        desc, desc_len, weights, n_weights, stage, jac, jbar, xbar0, grad_partial,
-        wbar, n, n_ops, h_rows, g_rows);
+  if (ws != nullptr) {
+    const BwdLayout o = {n_flow, ws_sizes[0], ws_sizes[1], ws_sizes[2], ws_sizes[3]};
+    const long long per_thread = bwd_slice_floats(o);
+    if (ws_sizes[0] < 1 || ws_sizes[1] < 1 || ws_sizes[2] < 1 || ws_sizes[3] < 0
+        || ws_len < per_thread * n_blocks * block)
+      return (int)cudaErrorInvalidValue;
+  } else if (n_flow > MAX_FLOW) {  // the local arrays' sizes; the wrapper checks the rest
+    return (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  cudaStream_t s = (cudaStream_t)stream;
+  const int none[4] = {0, 0, 0, 0};
+  const int* sz = ws != nullptr ? ws_sizes : none;
+  if (w_smem && ws)
+    return launch_bwd<true, true>(n_blocks, block, need, s, desc, desc_len, weights, n_weights,
+                                  stage, jac, jbar, xbar0, grad_partial, wbar, n, n_ops,
+                                  h_rows, g_rows, ws, sz);
+  if (ws)
+    return launch_bwd<false, true>(n_blocks, block, need, s, desc, desc_len, weights,
+                                   n_weights, stage, jac, jbar, xbar0, grad_partial, wbar, n,
+                                   n_ops, h_rows, g_rows, ws, sz);
+  if (w_smem)
+    return launch_bwd<true, false>(n_blocks, block, need, s, desc, desc_len, weights,
+                                   n_weights, stage, jac, jbar, xbar0, grad_partial, wbar, n,
+                                   n_ops, h_rows, g_rows, nullptr, sz);
+  return launch_bwd<false, false>(n_blocks, block, need, s, desc, desc_len, weights, n_weights,
+                                  stage, jac, jbar, xbar0, grad_partial, wbar, n, n_ops,
+                                  h_rows, g_rows, nullptr, sz);
 }
 
 }  // extern "C"

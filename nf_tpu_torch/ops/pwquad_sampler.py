@@ -11,12 +11,23 @@ Jacobian once.  It replaces nf_tpu's Pallas TPU kernel
   * :func:`plan_descriptor` / :func:`encode_plan`: the flow plan as an int32
     descriptor plus one flat float32 weight buffer, the two operands the
     kernel reads (the training kernels read the same two);
+  * the launch layout the sampler and the training forward share, counted
+    here and checked by the C entry points: :func:`op_table` (the row table
+    that stands in for the permutations), :func:`tile_rows` and
+    :func:`padded_weights`; and the launch rule, :func:`best_launch` over
+    block sizes and the weights' place by :func:`blocks_per_sm`;
+  * :class:`SamplerPlan`, with :func:`sampler_smem_bytes` and
+    :func:`sampler_config`, the sampler's launch;
   * :func:`philox_uniform`: the kernel's Philox4x32-10 latent stream in
     numpy, so the seeded variant has an exact plain version;
   * :func:`build_sampler`: checks, allocation, launch and the launch count.
     A model on the CPU takes the plain version
     (:func:`nf_tpu_torch.flows.fast_eval.make_folded_forward`); a model on a
     CUDA device launches the kernel or raises.
+
+The only plan a kernel refuses is one whose tiles do not fit one block's
+shared memory at its smallest block size (:data:`SMALL_BLOCKS`); it raises
+``ValueError``, and nothing falls back to the plain version on the card.
 """
 
 from __future__ import annotations
@@ -30,11 +41,24 @@ from nf_tpu_torch.interop import to_numpy
 # Launches of the CUDA kernel since import (or since a caller reset it).
 LAUNCHES = 0
 
-# Per-thread array caps compiled into the kernel (csrc/pwquad_sampler.cu).
-MAX_FLOW = 32      # latent dims
-MAX_HIDDEN = 64    # width of any conditioner layer but the last
-MAX_BINS = 32      # bins of a pwquad / pwlin cell
-SMEM_LIMIT = 232448  # bytes of shared memory one block may use on sm_90
+# The launch shape compiled into csrc/pwquad_sampler.cu, the block sizes
+# sampler_config picks from, and the most threads of its grid (each block
+# loops over several tiles above it).
+SAMPLER_MAX_BLOCK = 512
+SAMPLER_BLOCKS = (128, 256, 512)
+SAMPLER_MAX_THREADS = 1 << 20
+# Block sizes every kernel's launch rule falls back to where none of its own
+# fits shared memory.
+SMALL_BLOCKS = (64, 32)
+
+# An H100's shared memory per block and per SM, what the runtime reserves
+# per block, and an SM's threads and blocks (CUDA C++ Programming Guide,
+# compute capability 9.0).
+SMEM_LIMIT = 232448
+SM_SMEM = 233472
+SMEM_PER_BLOCK_RESERVED = 1024
+SM_THREADS = 2048
+SM_BLOCKS = 32
 
 OP_PERM, OP_CELL = 0, 1
 KIND = {"pwquad": 0, "pwlin": 1, "affine": 2}
@@ -96,6 +120,20 @@ def fold_eval_params(flow, model, dtype=np.float32):
 # Plan encoding (the kernel's two operands)
 # ---------------------------------------------------------------------------
 
+def layer_shapes(cfg):
+    """``((fan_in, fan_out, relu), ...)`` of a cell's folded conditioner: the
+    hidden layers, then the final layer, or its two factors with
+    ``final_rank``."""
+    shapes, prev = [], cfg.pass_through
+    for width in cfg.nn_sizes[:-1]:
+        shapes.append((prev, width, True))
+        prev = width
+    out = cfg.nn_sizes[-1]
+    if cfg.final_rank is None:
+        return tuple(shapes) + ((prev, out, False),)
+    return tuple(shapes) + ((prev, cfg.final_rank, False), (cfg.final_rank, out, False))
+
+
 def plan_descriptor(flow, shapes):
     """Return ``(desc int32[...], n_weights)`` for a flow whose cell ``c`` has
     folded layers of ``shapes[c] = [(fan_in, fan_out, relu), ...]``.
@@ -105,12 +143,10 @@ def plan_descriptor(flow, shapes):
       ``[OP_CELL, kind, pass_through, n_bins, act, n_layers,
         (fan_in, fan_out, relu, w_offset, b_offset) * n_layers]``
     with offsets in floats into one flat weight buffer, filled in ops order;
-    ``W`` is row-major ``[fan_in, fan_out]``.  Raises if the plan exceeds the
-    kernels' caps.  The training kernels share this layout.
+    ``W`` is row-major ``[fan_in, fan_out]``.  Raises only for a cell kind
+    the kernels do not know.  The training kernels share this layout.
     """
     n_flow = flow.n_flow
-    if n_flow > MAX_FLOW:
-        raise ValueError(f"fused kernel: n_flow {n_flow} > MAX_FLOW {MAX_FLOW}")
     desc = [n_flow, len(flow.ops)]
     n_weights = 0
     for op in flow.ops:
@@ -120,18 +156,10 @@ def plan_descriptor(flow, shapes):
         cfg = flow.cells[op[1]]
         if cfg.kind not in KIND:
             raise ValueError(f"fused kernel: unsupported cell kind {cfg.kind!r}")
-        n_bins = cfg.n_bins or 0
-        if n_bins > MAX_BINS:
-            raise ValueError(f"fused kernel: n_bins {n_bins} > MAX_BINS {MAX_BINS}")
         layers = shapes[op[1]]
-        desc += [OP_CELL, KIND[cfg.kind], cfg.pass_through, n_bins,
+        desc += [OP_CELL, KIND[cfg.kind], cfg.pass_through, cfg.n_bins or 0,
                  ACT[cfg.activation], len(layers)]
-        for li, (fan_in, fan_out, relu) in enumerate(layers):
-            # every layer's input, and every output but the streamed last
-            # layer's, lives in a per-thread array of MAX_HIDDEN floats
-            if fan_in > MAX_HIDDEN or (li < len(layers) - 1 and fan_out > MAX_HIDDEN):
-                raise ValueError(f"fused kernel: layer {fan_in}x{fan_out} "
-                                 f"exceeds MAX_HIDDEN {MAX_HIDDEN}")
+        for fan_in, fan_out, relu in layers:
             desc += [fan_in, fan_out, int(relu), n_weights, n_weights + fan_in * fan_out]
             n_weights += fan_in * fan_out + fan_out
     return np.asarray(desc, dtype=np.int32), n_weights
@@ -146,11 +174,154 @@ def encode_plan(flow, folded):
                for wm, bv, _ in folded[op[1]] for a in (wm, bv)]
     weights = np.concatenate(weights).astype(np.float32) if weights \
         else np.zeros(0, np.float32)
-    smem = 4 * (desc.size + weights.size)
-    if smem > SMEM_LIMIT:
-        raise ValueError(f"fused sampler: plan needs {smem} B of shared memory "
-                         f"> {SMEM_LIMIT}")
     return desc, weights
+
+
+# ---------------------------------------------------------------------------
+# The launch layout of the tiled kernels (csrc/flow_plan.cuh)
+# ---------------------------------------------------------------------------
+
+def logit_width(cfg):
+    """The last layer's logits per transformed dimension of a cell:
+    ``2 n_bins + 1`` for pwquad, ``n_bins`` for pwlin, 2 for affine."""
+    return {"pwquad": 2 * (cfg.n_bins or 0) + 1, "pwlin": cfg.n_bins or 0,
+            "affine": 2}[cfg.kind]
+
+
+def round4(v):
+    return -(-v // 4) * 4
+
+
+def _cell_ops(flow, shapes):
+    """``(cfg, layers)`` of every cell op of ``flow``, in op order."""
+    return [(flow.cells[op[1]], shapes[op[1]]) for op in flow.ops if op[0] == "cell"]
+
+
+def op_table(flow, shapes):
+    """The tiled kernels' int32 row table: ``[n_cell_ops``, each cell op's
+    position in the descriptor, then, for each cell op and once more for the
+    end of the flow, the row of the kernel's state tile that holds each of
+    the ``n_flow`` logical dimensions``]``.  The kernels' permutations move
+    no data: each one only changes which row holds which dimension.  Cell
+    ops may come in any order, and a cell may be applied more than once."""
+    n_flow = flow.n_flow
+    rows = np.arange(n_flow)
+    pos, maps, p = [], [], 2
+    for op in flow.ops:
+        if op[0] == "cell":
+            pos.append(p)
+            maps.append(rows)
+            p += 6 + 5 * len(shapes[op[1]])
+        else:   # x_new[d] = x[src[d]]
+            rows = rows[permutation_source(op, n_flow)]
+            p += 1 + n_flow
+    return np.concatenate([[len(pos)], pos, *maps, rows]).astype(np.int32)
+
+
+def tile_rows(flow, shapes):
+    """``(rows_a, rows_b)``: the rows of the conditioner tiles A and B.  Of a
+    cell's hidden layers (all but the last), the last writes A, the one
+    before it B, and so on back; B also holds the last layer's logits of one
+    transformed dimension at a time (:func:`logit_width`)."""
+    rows = [0, 0]
+    for cfg, layers in _cell_ops(flow, shapes):
+        hidden = layers[:-1]
+        for li, (_, fan_out, _) in enumerate(hidden):
+            tile = (len(hidden) - 1 - li) % 2
+            rows[tile] = max(rows[tile], fan_out)
+        rows[1] = max(rows[1], logit_width(cfg))
+    return tuple(rows)
+
+
+def padded_weights(flow, shapes):
+    """Floats of the copy of the weights in shared memory, where every row of
+    a layer (its bias too) is padded to a multiple of four: a hidden layer's
+    outputs, or the last layer's logits of each transformed dimension."""
+    total = 0
+    for cfg, layers in _cell_ops(flow, shapes):
+        for li, (fan_in, fan_out, _) in enumerate(layers):
+            ld = (round4(fan_out) if li < len(layers) - 1
+                  else (flow.n_flow - cfg.pass_through) * round4(logit_width(cfg)))
+            total += (fan_in + 1) * ld
+    return total
+
+
+def blocks_per_sm(smem, block):
+    """Blocks of ``block`` threads and ``smem`` bytes of shared memory that
+    one H100 SM holds at once, by shared memory, threads and its block limit
+    (registers are not counted: ptxas reports them on the card)."""
+    return min(SM_SMEM // (smem + SMEM_PER_BLOCK_RESERVED), SM_THREADS // block, SM_BLOCKS)
+
+
+def best_launch(blocks, smem_bytes, smem_first=False, what="kernel"):
+    """Of the block sizes ``blocks``, with the weights in shared memory or
+    read through L1, the launch ``(block, w_smem)`` that keeps the most
+    threads resident on an SM while at least two blocks share it (so that
+    one block's barrier leaves the SM another's work); on a tie, the weights
+    in shared memory, then the largest block (fewer barriers per sample).
+    With ``smem_first``, the weights in shared memory come before the
+    resident threads.  ``smem_bytes(block, w_smem)`` is a block's shared
+    memory; only launches that fit it are candidates.  Where none of
+    ``blocks`` fits, :data:`SMALL_BLOCKS` are
+    tried by the same rule; where none of those fits either, raises
+    ``ValueError``."""
+    def rank(config):
+        block, w_smem = config
+        k = blocks_per_sm(smem_bytes(block, w_smem), block)
+        return (k >= 2, w_smem, k * block, block) if smem_first else \
+            (k >= 2, k * block, w_smem, block)
+
+    for sizes in (blocks, SMALL_BLOCKS):
+        configs = [(b, w) for b in sizes for w in (True, False)
+                   if blocks_per_sm(smem_bytes(b, w), b) >= 1]
+        if configs:
+            return max(configs, key=rank)
+    raise ValueError(f"{what}: no launch fits the plan; at {SMALL_BLOCKS[-1]} threads a "
+                     f"block needs {smem_bytes(SMALL_BLOCKS[-1], False)} B of shared "
+                     f"memory > {SMEM_LIMIT}")
+
+
+class SamplerPlan:
+    """A flow's descriptor, row table, tile rows and padded weights as the
+    sampler kernel reads them, and its launch (:func:`sampler_config`);
+    raises ``ValueError`` where no launch fits."""
+
+    def __init__(self, flow):
+        self.flow = flow
+        shapes = [layer_shapes(cfg) for cfg in flow.cells]
+        self.desc, self.n_weights = plan_descriptor(flow, shapes)
+        self.table = op_table(flow, shapes)
+        self.tiles = tile_rows(flow, shapes)
+        self.n_wpad = padded_weights(flow, shapes)
+        self.config = sampler_config(self)
+
+
+def sampler_smem_bytes(plan, block, w_smem=True):
+    """Shared memory of one sampler block of ``block`` threads: the
+    descriptor and the row table (padded to four int32s); with ``w_smem``
+    the padded weights (:func:`padded_weights`); and the X, A and B tiles (a
+    row of ``block + 1`` floats per feature).  ``nf_pwquad_sampler`` refuses
+    a launch whose count differs from its own."""
+    rows_a, rows_b = plan.tiles
+    return 4 * (round4(plan.desc.size + plan.table.size) + (plan.n_wpad if w_smem else 0)
+                + (plan.flow.n_flow + rows_a + rows_b) * (block + 1))
+
+
+def sampler_config(plan):
+    """``(block, w_smem)`` of the sampler for ``plan``, by :func:`best_launch`
+    over :data:`SAMPLER_BLOCKS`, the weights in shared memory first: each
+    activation load feeds four FMAs whose weights are one float4 from shared
+    memory, against four loads through L1 (the training forward's rule,
+    which reads the same layers the same way)."""
+    return best_launch(SAMPLER_BLOCKS, lambda b, w: sampler_smem_bytes(plan, b, w),
+                       smem_first=True, what="fused sampler")
+
+
+def sampler_blocks(n, block):
+    """The sampler's grid for ``n`` samples in blocks of ``block``: a tile
+    of ``block`` samples per block, at most :data:`SAMPLER_MAX_THREADS`
+    threads (each block then loops over several tiles)."""
+    return min(-(-n // block), SAMPLER_MAX_THREADS // block)
 
 
 # ---------------------------------------------------------------------------
@@ -201,31 +372,39 @@ def philox_uniform(seed: int, offset: int, n: int, n_flow: int) -> np.ndarray:
 # Sampler construction
 # ---------------------------------------------------------------------------
 
-def _launch(desc, weights, latents, seed, offset, n, n_flow, dim_major):
-    """One kernel launch on the current stream; returns ``(x, jac)``."""
+def _launch(plan, ops, latents, seed, offset, n, dim_major, config, smem):
+    """One kernel launch on the current stream; returns ``(x, jac)``.
+    ``ops`` holds the descriptor, the row table and the flat weights on the
+    device; ``config = (block, w_smem)`` and ``smem`` its
+    :func:`sampler_smem_bytes`."""
     global LAUNCHES
     from nf_tpu_torch.ops import _build
 
     lib = _build.library()
+    desc, tab, weights = ops
     device = desc.device
+    n_flow = plan.flow.n_flow
+    block, w_smem = config
     x = torch.empty((n_flow, n) if dim_major else (n, n_flow),
                     dtype=torch.float32, device=device)
     jac = torch.empty(n, dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         err = lib.nf_pwquad_sampler(
-            desc.data_ptr(), desc.numel(), weights.data_ptr(), weights.numel(),
-            latents.data_ptr() if latents is not None else None,
-            seed & ((1 << 64) - 1), offset, x.data_ptr(), jac.data_ptr(), n,
+            desc.data_ptr(), desc.numel(), tab.data_ptr(), tab.numel(), weights.data_ptr(),
+            plan.n_wpad, latents.data_ptr() if latents is not None else None,
+            seed & ((1 << 64) - 1), offset, x.data_ptr(), jac.data_ptr(), n, n_flow,
+            max(sampler_blocks(n, block), 1), block, int(w_smem), *plan.tiles, smem,
             int(dim_major), stream)
     if err != 0:
         raise RuntimeError(f"pwquad_sampler kernel launch failed: {_build.error_string(err)}")
-    LAUNCHES += 1
+    if n > 0:
+        LAUNCHES += 1
     return x, jac
 
 
 def build_sampler(flow, model, take_latents: bool = False,
-                  layout: str = "batch_major"):
+                  layout: str = "batch_major", config=None):
     """Fused eval-mode sampler for ``model`` (a FlowModel of ``flow``).
 
     Returns ``sample(seed, n, offset=0) -> (x, jac)``, or with
@@ -236,7 +415,9 @@ def build_sampler(flow, model, take_latents: bool = False,
     give disjoint streams for one seed.
 
     The weights are folded and encoded once, here.  On a CUDA device every
-    call launches the kernel; on the CPU it runs the plain version.
+    call launches the kernel, with ``config = (block, w_smem)`` (default
+    :func:`sampler_config`); a plan no launch fits raises ``ValueError``
+    here.  On the CPU it runs the plain version.
     """
     from nf_tpu_torch.flows.fast_eval import make_folded_forward
 
@@ -246,8 +427,13 @@ def build_sampler(flow, model, take_latents: bool = False,
     n_flow = flow.n_flow
     device = model_device(model)
     if device.type == "cuda":
-        desc, weights = (torch.as_tensor(a, device=device)
-                         for a in encode_plan(flow, fold_eval_params(flow, model)))
+        plan = SamplerPlan(flow)
+        config = config or plan.config
+        if config[0] not in SAMPLER_BLOCKS + SMALL_BLOCKS:
+            raise ValueError(f"sampler block {config[0]} not in {SAMPLER_BLOCKS + SMALL_BLOCKS}")
+        smem = sampler_smem_bytes(plan, *config)
+        desc, weights = encode_plan(flow, fold_eval_params(flow, model))
+        ops = tuple(torch.as_tensor(a, device=device) for a in (desc, plan.table, weights))
     elif device.type == "cpu":
         plain = make_folded_forward(flow, model, torch.float32)
     else:
@@ -255,12 +441,11 @@ def build_sampler(flow, model, take_latents: bool = False,
 
     def run(latents, seed, offset, n):
         if device.type == "cuda":
-            return _launch(desc, weights, latents, seed, offset, n, n_flow, dim_major)
+            return _launch(plan, ops, latents, seed, offset, n, dim_major, config, smem)
         if latents is None:
             latents = torch.from_numpy(philox_uniform(seed, offset, n, n_flow))
         x, jac = plain(latents)
         return (x.T.contiguous() if dim_major else x), jac
-
     if take_latents:
         def sample(latents):
             if latents.device != device:

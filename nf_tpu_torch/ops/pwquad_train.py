@@ -37,6 +37,8 @@ launches its kernel or raises.  The kernels compute in float32.
 
 from __future__ import annotations
 
+import ctypes
+
 import numpy as np
 import torch
 
@@ -44,48 +46,34 @@ from nf_tpu_torch.bijectors import coupling
 from nf_tpu_torch.bijectors.batchnorm import EPS, MOMENTUM
 from nf_tpu_torch.flows.fast_eval import apply_folded, permutation_index
 from nf_tpu_torch.flows.model import permutation_source
-from nf_tpu_torch.ops.pwquad_sampler import SMEM_LIMIT, plan_descriptor
+from nf_tpu_torch.ops.pwquad_sampler import (SMALL_BLOCKS, SMEM_LIMIT, best_launch,  # noqa: F401
+                                             blocks_per_sm, layer_shapes, logit_width,
+                                             op_table, padded_weights as _padded_weights,
+                                             plan_descriptor, round4, tile_rows)
 
 # Launches of the CUDA kernels since import (or since a caller reset them).
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
 
-# Caps and launch shape compiled into csrc/pwquad_train.cu.
-MAX_ACTS = 256         # inputs of all of one cell's layers (backward)
-MAX_OPS = 256          # ops of a flow
+# Launch shape compiled into csrc/pwquad_train.cu.
 FWD_MAX_BLOCK = 512    # threads (samples) per block of the forward
 BWD_MAX_BLOCK = 512    # threads (samples) per block of the backward
 # The launches' block sizes (train_fwd_config and train_bwd_config pick from
-# them) and the most threads of each kernel's grid.
+# them, then from SMALL_BLOCKS where none fits) and the most threads of each
+# kernel's grid.
 FWD_BLOCKS = (128, 256, 512)
 BWD_BLOCKS = (128, 256, 512)
 FWD_MAX_THREADS = 1 << 20
 BWD_MAX_THREADS = 1 << 17
-
-# An H100 SM's shared memory for its resident blocks, and what the runtime
-# reserves per block (CUDA C++ Programming Guide, compute capability 9.0).
-SM_SMEM = 233472
-SMEM_PER_BLOCK_RESERVED = 1024
-SM_THREADS = 2048
+# The backward's per-thread arrays are local arrays of these sizes (latent
+# dims, a layer's fan_in, bins, a cell's layer inputs in all); a plan beyond
+# any of them runs the workspace kernel (train_bwd_workspace).
+BWD_LOCAL_FLOW, BWD_LOCAL_HIDDEN, BWD_LOCAL_BINS, BWD_LOCAL_ACTS = 32, 64, 32, 256
 
 
 # ---------------------------------------------------------------------------
 # The differentiable fold
 # ---------------------------------------------------------------------------
-
-def layer_shapes(cfg):
-    """``((fan_in, fan_out, relu), ...)`` of a cell's folded conditioner: the
-    hidden layers, then the final layer, or its two factors with
-    ``final_rank``."""
-    shapes, prev = [], cfg.pass_through
-    for width in cfg.nn_sizes[:-1]:
-        shapes.append((prev, width, True))
-        prev = width
-    out = cfg.nn_sizes[-1]
-    if cfg.final_rank is None:
-        return tuple(shapes) + ((prev, out, False),)
-    return tuple(shapes) + ((prev, cfg.final_rank, False), (cfg.final_rank, out, False))
-
 
 def _check_cell_order(flow):
     if [op[1] for op in flow.ops if op[0] == "cell"] != list(range(len(flow.cells))):
@@ -265,6 +253,8 @@ class TrainPlan:
         self.fwd_tab = fwd_table(self)
         self.fwd_tiles = train_fwd_tiles(self)
         self.n_wpad = padded_weights(self)
+        self.bwd_sizes = bwd_array_sizes(self)
+        self.bwd_ws = train_bwd_workspace(self)
         # {with_stats: train_fwd_config} and train_bwd_config, set with the
         # descriptor
         self.fwd_config = None
@@ -272,23 +262,12 @@ class TrainPlan:
 
     def descriptor(self, device):
         """The int32 descriptor on ``device`` (and the forward's table,
-        :meth:`table`); raises if the plan exceeds the kernels' caps."""
+        :meth:`table`); raises ``ValueError`` where no launch of a kernel
+        fits the plan."""
         if device not in self._desc:
             desc, _ = plan_descriptor(self.flow, self.meta)
-            if len(self.flow.ops) > MAX_OPS:
-                raise ValueError(f"training kernels: {len(self.flow.ops)} ops > MAX_OPS {MAX_OPS}")
-            for m in self.meta:
-                if sum(fi for fi, _, _ in m) > MAX_ACTS:
-                    raise ValueError(f"training kernels: a cell's layer inputs exceed "
-                                     f"MAX_ACTS {MAX_ACTS}")
             self.fwd_config = {stats: train_fwd_config(self, stats) for stats in (False, True)}
             self.bwd_config = train_bwd_config(self)
-            smem = max([train_fwd_smem_bytes(self, *config, stats)
-                        for stats, config in self.fwd_config.items()]
-                       + [train_bwd_smem_bytes(self, *self.bwd_config)])
-            if smem > SMEM_LIMIT:
-                raise ValueError(f"training kernels: plan needs {smem} B of shared "
-                                 f"memory > {SMEM_LIMIT}")
             self._desc[device] = torch.as_tensor(desc, device=device)
             self._tab[device] = torch.as_tensor(self.fwd_tab, device=device)
         return self._desc[device]
@@ -299,77 +278,45 @@ class TrainPlan:
         return self._tab[device]
 
 
-def logit_width(cfg):
-    """The last layer's logits per transformed dimension of a cell:
-    ``2 n_bins + 1`` for pwquad, ``n_bins`` for pwlin, 2 for affine."""
-    return {"pwquad": 2 * (cfg.n_bins or 0) + 1, "pwlin": cfg.n_bins or 0,
-            "affine": 2}[cfg.kind]
-
-
-def _round4(v):
-    return -(-v // 4) * 4
-
-
 def fwd_table(plan):
-    """The forward kernel's int32 table: ``[n_cells``, each cell's position
-    in the descriptor, then, for each cell and once more for the end of the
-    flow, the row of the kernel's state tile that holds each of the
-    ``n_flow`` logical dimensions``]``.  The kernel's permutations move no
-    data: each one only changes which row holds which dimension."""
-    n_flow = plan.flow.n_flow
-    rows = np.arange(n_flow)
-    pos, maps, p = [], [], 2
-    for op in plan.flow.ops:
-        if op[0] == "cell":
-            pos.append(p)
-            maps.append(rows)
-            p += 6 + 5 * len(plan.meta[op[1]])
-        else:   # x_new[d] = x[src[d]]
-            rows = rows[permutation_source(op, n_flow)]
-            p += 1 + n_flow
-    return np.concatenate([[len(pos)], pos, *maps, rows]).astype(np.int32)
+    """The forward kernel's row table (:func:`~nf_tpu_torch.ops.
+    pwquad_sampler.op_table`): each cell's position in the descriptor and,
+    per cell and for the end of the flow, the X row of each logical
+    dimension."""
+    return op_table(plan.flow, plan.meta)
 
 
 def train_fwd_tiles(plan):
-    """``(rows_a, rows_b)``: the rows of the forward kernel's two conditioner
-    tiles.  Of a cell's hidden layers (all but the last), the last writes A,
-    the one before it B, and so on back; B also holds the last layer's
-    logits of one transformed dimension at a time (:func:`logit_width`)."""
-    rows = [0, 0]
-    for cfg, shapes in zip(plan.flow.cells, plan.meta):
-        hidden = shapes[:-1]
-        for li, (_, fan_out, _) in enumerate(hidden):
-            tile = (len(hidden) - 1 - li) % 2
-            rows[tile] = max(rows[tile], fan_out)
-        rows[1] = max(rows[1], logit_width(cfg))
-    return tuple(rows)
+    """``(rows_a, rows_b)`` of the forward's conditioner tiles
+    (:func:`~nf_tpu_torch.ops.pwquad_sampler.tile_rows`)."""
+    return tile_rows(plan.flow, plan.meta)
 
 
 def padded_weights(plan):
-    """Floats of the forward's copy of the weights in shared memory, where
-    every row of a layer (its bias too) is padded to a multiple of four: a
-    hidden layer's outputs, or the last layer's logits of each transformed
-    dimension."""
-    total = 0
-    for cfg, shapes in zip(plan.flow.cells, plan.meta):
-        for li, (fan_in, fan_out, _) in enumerate(shapes):
-            ld = (_round4(fan_out) if li < len(shapes) - 1
-                  else (plan.flow.n_flow - cfg.pass_through) * _round4(logit_width(cfg)))
-            total += (fan_in + 1) * ld
-    return total
+    """Floats of the forward's padded copy of the weights in shared memory
+    (:func:`~nf_tpu_torch.ops.pwquad_sampler.padded_weights`)."""
+    return _padded_weights(plan.flow, plan.meta)
+
+
+def stats_part_rows(plan, block):
+    """The rows of the stats forward's partial sums in a block of ``block``
+    threads: the most rows one block sum takes (a cell's xA columns, or one
+    ReLU layer's units), or ``block`` if more."""
+    return max([block] + [cfg.pass_through for cfg in plan.flow.cells]
+               + [fo for m in plan.meta for _, fo, relu in m if relu])
 
 
 def train_fwd_smem_bytes(plan, block, w_smem=True, stats=False):
     """Shared memory of one forward block of ``block`` threads: with
     ``stats``, the block's double accumulator (``n_stat_rows``) and the block
-    sums' partial pairs (2 per thread); the descriptor and :func:`fwd_table`
+    sums' partial pairs (2 per :func:`stats_part_rows`); the descriptor and :func:`fwd_table`
     (padded to four int32s); with ``w_smem``, the padded weights
     (:func:`padded_weights`); and the X, A and B tiles (a row of
     ``block + 1`` floats per feature).  ``nf_pwquad_train_fwd`` refuses a
     launch whose count differs from its own."""
     rows_a, rows_b = plan.fwd_tiles
-    return (8 * (plan.n_stat_rows + 2 * block if stats else 0)
-            + 4 * (_round4(plan.desc_len + plan.fwd_tab.size)
+    return (8 * (plan.n_stat_rows + 2 * stats_part_rows(plan, block) if stats else 0)
+            + 4 * (round4(plan.desc_len + plan.fwd_tab.size)
                    + (plan.n_wpad if w_smem else 0)
                    + (plan.flow.n_flow + rows_a + rows_b) * (block + 1)))
 
@@ -402,47 +349,54 @@ def train_bwd_smem_bytes(plan, block, w_smem=True):
                 + len(plan.flow.ops) + 1 + (h_rows + g_rows) * (block + 1) + 4 * block)
 
 
-def blocks_per_sm(smem, block):
-    """Blocks of ``block`` threads and ``smem`` bytes of shared memory that
-    one H100 SM holds at once, by shared memory and threads (registers
-    are not counted: ptxas reports them on the card)."""
-    return min(SM_SMEM // (smem + SMEM_PER_BLOCK_RESERVED), SM_THREADS // block)
-
-
-def _best_launch(blocks, smem_bytes, smem_first=False):
-    """Of the block sizes ``blocks``, with the weights in shared memory or
-    read through L1, the launch ``(block, w_smem)`` that keeps the most
-    threads resident on an SM while at least two blocks share it (so that
-    one block's barrier leaves the SM another's work); on a tie, the weights
-    in shared memory, then the largest block (fewer barriers per sample).
-    With ``smem_first``, the weights in shared memory come before the
-    resident threads.  ``smem_bytes(block, w_smem)`` is a block's shared
-    memory."""
-    def rank(config):
-        block, w_smem = config
-        k = blocks_per_sm(smem_bytes(block, w_smem), block)
-        return (k >= 2, w_smem, k * block, block) if smem_first else \
-            (k >= 2, k * block, w_smem, block)
-
-    return max(((b, w) for b in blocks for w in (True, False)), key=rank)
-
-
 def train_fwd_config(plan, stats=False):
     """``(block, w_smem)`` of the forward for ``plan``, with or without the
-    statistics, by :func:`_best_launch` over :data:`FWD_BLOCKS`, the weights
-    in shared memory first: the forward reads four outputs' weights per
-    activation, one float4 from shared memory against four loads through L1,
-    and the L1 launches ran ~30% slower at every block size on the 10-D
-    flagship (PERF.md §6)."""
-    return _best_launch(FWD_BLOCKS, lambda b, w: train_fwd_smem_bytes(plan, b, w, stats),
-                        smem_first=True)
+    statistics, by :func:`~nf_tpu_torch.ops.pwquad_sampler.best_launch` over
+    :data:`FWD_BLOCKS`, the weights in shared memory first: the forward reads
+    four outputs' weights per activation, one float4 from shared memory
+    against four loads through L1, and the L1 launches ran ~30% slower at
+    every block size on the 10-D flagship (PERF.md §6)."""
+    return best_launch(FWD_BLOCKS, lambda b, w: train_fwd_smem_bytes(plan, b, w, stats),
+                       smem_first=True, what="training forward")
 
 
 def train_bwd_config(plan):
     """``(block, w_smem)`` of the backward for ``plan``, by
-    :func:`_best_launch` over :data:`BWD_BLOCKS` (with the weights in shared
-    memory, L1 is left to the per-thread arrays)."""
-    return _best_launch(BWD_BLOCKS, lambda b, w: train_bwd_smem_bytes(plan, b, w))
+    :func:`~nf_tpu_torch.ops.pwquad_sampler.best_launch` over
+    :data:`BWD_BLOCKS` (with the weights in shared memory, L1 is left to the
+    per-thread arrays)."""
+    return best_launch(BWD_BLOCKS, lambda b, w: train_bwd_smem_bytes(plan, b, w),
+                       what="training backward")
+
+
+def bwd_array_sizes(plan):
+    """``(acts, hidden, width, bins)``: the backward's per-thread arrays
+    for ``plan``: a cell's layer inputs in all, a layer's fan_in, one
+    transformed dimension's logits, a pwquad or pwlin cell's bins."""
+    return (max(sum(fi for fi, _, _ in m) for m in plan.meta),
+            max(fi for m in plan.meta for fi, _, _ in m),
+            max(logit_width(cfg) for cfg in plan.flow.cells),
+            max([cfg.n_bins or 0 for cfg in plan.flow.cells if cfg.kind != "affine"] + [0]))
+
+
+def bwd_workspace_floats(plan):
+    """Floats per thread of the backward's workspace for ``plan``: xbar, xin
+    and the permutation's scratch (n_flow each), the layer inputs, two
+    hidden cotangents, one dimension's logits and their cotangent, and the
+    VJPs' arrays (5 bins + 3), as ``bwd_layout`` in csrc/pwquad_train.cu
+    lays them out."""
+    acts, hidden, width, bins = plan.bwd_sizes
+    return 3 * plan.flow.n_flow + acts + 2 * hidden + 2 * width + 5 * bins + 3
+
+
+def train_bwd_workspace(plan):
+    """:func:`bwd_workspace_floats` where ``plan`` is beyond the backward's
+    local arrays (:data:`BWD_LOCAL_FLOW` and the rest), else 0."""
+    acts, hidden, _, bins = plan.bwd_sizes
+    if (plan.flow.n_flow <= BWD_LOCAL_FLOW and acts <= BWD_LOCAL_ACTS
+            and hidden <= BWD_LOCAL_HIDDEN and bins <= BWD_LOCAL_BINS):
+        return 0
+    return bwd_workspace_floats(plan)
 
 
 def _check(plan, flat, tensors):
@@ -474,22 +428,29 @@ def train_forward(plan, flat, latents, with_stats=False, config=None):
     frozen-statistics map.  One launch of the forward kernel on CUDA
     tensors, with ``config = (block, w_smem)`` (default
     :func:`train_fwd_config`); :func:`forward_stats_ref` on CPU tensors."""
-    global FWD_LAUNCHES
     n_flow = plan.flow.n_flow
     n = latents.shape[0]
     _check(plan, flat, [("latents", latents, (n, n_flow))])
     if flat.device.type == "cpu":
         out = forward_stats_ref(plan.flow, flat, latents)
         return out if with_stats else out[:3]
+    return _launch_fwd(plan, flat, latents, with_stats, config)
+
+
+def _launch_fwd(plan, flat, latents, with_stats, config):
+    """One launch of the forward kernel on the current stream."""
+    global FWD_LAUNCHES
     from nf_tpu_torch.ops import _build
 
     lib = _build.library()
+    n_flow = plan.flow.n_flow
+    n = latents.shape[0]
     device = flat.device
     desc = plan.descriptor(device)
     tab = plan.table(device)
     block, w_smem = config or plan.fwd_config[with_stats]
-    if block not in FWD_BLOCKS:
-        raise ValueError(f"forward block {block} not in {FWD_BLOCKS}")
+    if block not in FWD_BLOCKS + SMALL_BLOCKS:
+        raise ValueError(f"forward block {block} not in {FWD_BLOCKS + SMALL_BLOCKS}")
     smem = train_fwd_smem_bytes(plan, block, w_smem, with_stats)
     x = torch.empty((n, n_flow), dtype=torch.float32, device=device)
     jac = torch.empty(n, dtype=torch.float32, device=device)
@@ -501,7 +462,8 @@ def train_forward(plan, flat, latents, with_stats=False, config=None):
         err = lib.nf_pwquad_train_fwd(
             desc.data_ptr(), desc.numel(), tab.data_ptr(), tab.numel(), flat.data_ptr(),
             plan.n_wpad, latents.data_ptr(), x.data_ptr(), jac.data_ptr(), stage.data_ptr(),
-            partial.data_ptr() if with_stats else None, plan.n_stat_rows, n, n_flow,
+            partial.data_ptr() if with_stats else None, plan.n_stat_rows,
+            stats_part_rows(plan, block), n, n_flow,
             n_blocks, block, int(w_smem), *plan.fwd_tiles, smem,
             torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
@@ -514,15 +476,17 @@ def train_forward(plan, flat, latents, with_stats=False, config=None):
     return x, jac, stage
 
 
-def train_backward(plan, flat, stage, jac, jbar, xbar, latents=None, config=None):
+def train_backward(plan, flat, stage, jac, jbar, xbar, latents=None, config=None,
+                   workspace=None):
     """``(dflat [n_weights], wbar [n, n_flow])``: the gradient of
     :func:`train_forward`'s ``(x, jac)`` for the cotangents ``(xbar, jbar)``
     with respect to the flat folded weights and the latents.  One launch of
     the backward kernel on CUDA tensors, which reads ``stage`` and ``jac``,
-    with ``config = (block, w_smem)`` (default :func:`train_bwd_config`);
+    with ``config = (block, w_smem)`` (default :func:`train_bwd_config`) and
+    its per-thread arrays in a device workspace where ``workspace`` (default:
+    where the plan needs it, :func:`train_bwd_workspace`);
     :func:`folded_backward_ref` on CPU tensors, which recomputes from
     ``latents``."""
-    global BWD_LAUNCHES
     n_flow = plan.flow.n_flow
     n = jac.shape[0]
     _check(plan, flat, [("jac", jac, (n,)), ("jbar", jbar, (n,)),
@@ -533,25 +497,41 @@ def train_backward(plan, flat, stage, jac, jbar, xbar, latents=None, config=None
         _check(plan, flat, [("latents", latents, (n, n_flow))])
         return folded_backward_ref(plan.flow, flat, latents, xbar, jbar)
     _check(plan, flat, [("stage", stage, (len(plan.flow.cells), n_flow, n))])
+    return _launch_bwd(plan, flat, stage, jac, jbar, xbar, config, workspace)
+
+
+def _launch_bwd(plan, flat, stage, jac, jbar, xbar, config, workspace):
+    """One launch of the backward kernel on the current stream."""
+    global BWD_LAUNCHES
     from nf_tpu_torch.ops import _build
 
     lib = _build.library()
+    n_flow = plan.flow.n_flow
+    n = jac.shape[0]
     device = flat.device
     desc = plan.descriptor(device)
     block, w_smem = config or plan.bwd_config
-    if block not in BWD_BLOCKS:
-        raise ValueError(f"backward block {block} not in {BWD_BLOCKS}")
+    if block not in BWD_BLOCKS + SMALL_BLOCKS:
+        raise ValueError(f"backward block {block} not in {BWD_BLOCKS + SMALL_BLOCKS}")
     smem = train_bwd_smem_bytes(plan, block, w_smem)
     n_blocks = min(-(-n // block), BWD_MAX_THREADS // block)
     partial = torch.empty((n_blocks, plan.n_weights), dtype=torch.float32, device=device)
     wbar = torch.empty((n, n_flow), dtype=torch.float32, device=device)
+    if workspace is not None and not workspace and plan.bwd_ws:
+        raise ValueError("training backward: the plan is beyond the local arrays "
+                         "(train_bwd_workspace); it needs the workspace")
+    per_thread = plan.bwd_ws if workspace is None else (
+        bwd_workspace_floats(plan) if workspace else 0)
+    ws = torch.empty(per_thread * n_blocks * block, dtype=torch.float32, device=device) \
+        if per_thread else None
     with torch.cuda.device(device):
         err = lib.nf_pwquad_train_bwd(
             desc.data_ptr(), desc.numel(), flat.data_ptr(), flat.numel(),
             stage.data_ptr(), jac.data_ptr(), jbar.data_ptr(), xbar.data_ptr(),
             partial.data_ptr(), wbar.data_ptr(), n, n_blocks, block, int(w_smem),
             len(plan.flow.ops), *train_bwd_tiles(plan), smem,
-            torch.cuda.current_stream(device).cuda_stream)
+            ws.data_ptr() if per_thread else None, ws.numel() if per_thread else 0, n_flow,
+            (ctypes.c_int * 4)(*plan.bwd_sizes), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"pwquad_train backward kernel launch failed: "
                            f"{_build.error_string(err)}")

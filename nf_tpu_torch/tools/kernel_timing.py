@@ -3,8 +3,8 @@
 
 Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
-    python3 nf_tpu_torch/tools/kernel_timing.py ptxas
-        nvcc -Xptxas -v on every csrc/*.cu: registers, stack, spills per kernel
+    python3 nf_tpu_torch/tools/kernel_timing.py ptxas [--tree DIR]
+        nvcc -Xptxas -v on every csrc/*.cu of the tree: registers, stack, spills per kernel
     python3 nf_tpu_torch/tools/kernel_timing.py time [--tree DIR]
         kernel and trainer timings of the nf_tpu_torch found in DIR (default:
         this checkout), the training wrappers' host time per call, and a
@@ -14,10 +14,10 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
         ``time`` for each tree in turn, each in its own process (each builds
         its own kernel library), on the same card; one JSON line per tree
     python3 nf_tpu_torch/tools/kernel_timing.py sweep [--tree DIR]
-        the training backward, and the forward with and without stats, at
-        each of the tree's launch configurations for that kernel (block
-        size, weights in shared memory or through L1; its default only, for
-        a tree without them), one JSON line
+        the training backward, the forward with and without stats, and the
+        sampler, at each of the tree's launch configurations for that kernel
+        (block size, weights in shared memory or through L1; its default
+        only, for a tree without them), one JSON line
 
 Every timing is the median of CUDA-event times after warm-up, printed beside
 the card's name and power limit from nvidia-smi.  Inputs are made from fixed
@@ -177,6 +177,8 @@ def time_tree(tree):
         jbar = torch.randn(n_train, generator=gen, device=dev)
         x, jac, stage = pt.train_forward(plan, flat, w)
         seeded = ps.build_sampler(flow, model, layout="dim_major")
+        latents = ps.build_sampler(flow, model, take_latents=True)
+        w_s = torch.rand((1 << 21, flow.n_flow), generator=gen, device=dev)
         # the kernels the trees share first, each tree from the same state
         calls = {
             "fwd": lambda: pt.train_forward(plan, flat, w),
@@ -187,7 +189,9 @@ def time_tree(tree):
         # one launch between the events (as chip_smoke.py times), then 20;
         # then each kernel's own device time, from the profiler
         out[name] = {"n_train": n_train, "fwd_digest": digest(x, jac, stage),
-                     "bwd_digest": digest(*calls["bwd"]())}
+                     "bwd_digest": digest(*calls["bwd"]()),
+                     "sampler_digest": digest(*seeded(7, (1 << 21) + 333, offset=1 << 33),
+                                              *latents(w_s))}
         for key, fn in calls.items():
             out[name][key + "_ms"] = time_ms(fn)
         for key, fn in calls.items():
@@ -222,9 +226,11 @@ def time_tree(tree):
 def sweep(tree):
     """The backward and both forward variants per launch configuration,
     camel-2D at 2^20 and the flagship at 2^18, on the inputs ``time``
-    uses."""
+    uses; the seeded dim-major sampler per launch configuration at 2^21
+    (one launch between the events, and its device time)."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
+    from nf_tpu_torch.ops import pwquad_sampler as ps
     from nf_tpu_torch.ops import pwquad_train as pt
 
     dev = torch.device("cuda")
@@ -267,6 +273,23 @@ def sweep(tree):
                     row[key + "_ms"] = time_ms(lambda: pt.train_forward(
                         plan, flat, w, stats, config=(block, w_smem)))
                     row[key + "_per_sm"] = pt.blocks_per_sm(smem, block)
+        seeded = ps.build_sampler(flow, model, layout="dim_major")
+        row["sampler_default_ms"] = time_ms(lambda: seeded(7, 1 << 21))
+        row["sampler_default_device_ms"] = device_ms(lambda: seeded(7, 1 << 21))
+        if hasattr(ps, "sampler_config"):
+            splan = ps.SamplerPlan(flow)
+            row["sampler_default_config"] = splan.config
+            for block in ps.SAMPLER_BLOCKS + ps.SMALL_BLOCKS:
+                for w_smem in (True, False):
+                    smem = ps.sampler_smem_bytes(splan, block, w_smem)
+                    if smem > ps.SMEM_LIMIT:
+                        continue
+                    run = ps.build_sampler(flow, model, layout="dim_major",
+                                           config=(block, w_smem))
+                    key = f"sampler_block{block}_{'wsmem' if w_smem else 'wl1'}"
+                    row[key + "_ms"] = time_ms(lambda: run(7, 1 << 21))
+                    row[key + "_device_ms"] = device_ms(lambda: run(7, 1 << 21))
+                    row[key + "_per_sm"] = ps.blocks_per_sm(smem, block)
         out[name] = row
     print(json.dumps(out), flush=True)
     return 0

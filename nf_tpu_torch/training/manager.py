@@ -243,7 +243,7 @@ class BasicManager:
     def _train_variance_forward_seq(self, f, optimizer_object, log=True,
                                     logdir=None, batch_size=10000, epochs=10,
                                     epoch_start=0, pretty_progressbar=True,
-                                    save_best=True, run=None,
+                                    save_best=True, run=None, dev=0,
                                     mini_batch_size=2000, integrate=False,
                                     preburn_time=75, kill_counter=7,
                                     impr_ratio=1e-2, loss_mode="var",
@@ -257,7 +257,9 @@ class BasicManager:
 
         ``f(x: [B, n_flow]) -> [B]`` takes and returns tensors.
         ``optimizer_object`` is a factory ``make(params)`` such as
-        :func:`nf_tpu_torch.training.optimizers.adamax`.  ``bn_stats="stale"``
+        :func:`nf_tpu_torch.training.optimizers.adamax`.  ``dev`` (the
+        reference's device index, between ``run`` and ``mini_batch_size``) is
+        accepted and ignored: the device is the constructor's.  ``bn_stats="stale"``
         trains with the running statistics fixed within each epoch and
         refreshed every ``stats_every`` epochs (module docstring).  Returns
         ``(integral, error)`` when ``integrate`` else ``(0, 0)``.
@@ -501,12 +503,13 @@ class BasicManager:
 
     # -- post-training integrator (reference manager.py:380-405) ------------
 
-    def integrate(self, f, nitn, neval, seed=None, combine="iw", method=None,
+    def integrate(self, f, nitn, neval, dev=None, seed=None, combine="iw", method=None,
                   mesh=None):
         """Post-training MC estimate: ``nitn`` iterations of ``neval``
         samples from the best model, combined by ``combine`` ("iw": the
         reference's inverse-variance weighting; "mean": plain mean with the
-        pooled standard error).
+        pooled standard error).  ``dev`` (the reference's device index) is
+        accepted and ignored: the device is the constructor's.
 
         On a CUDA device the default method is the fused kernel: one launch
         per iteration, each with its own range of the Philox counter, the
@@ -572,8 +575,10 @@ class BasicManager:
 class AffineManager(BasicManager):
     """Affine coupling cells + roll layers (reference manager.py:411-453)."""
 
-    def create_model(self, n_pass_through, n_cells, NN, roll_step,
+    def create_model(self, n_pass_through, n_cells, NN, roll_step, dev=None,
                      identity_init=False):
+        """``dev``, the reference's device index, is ignored: the device is
+        the constructor's."""
         self._set_model(factory.build_affine_flow(
             self._gen, self.n_flow, n_pass_through, n_cells, tuple(NN),
             roll_step, self.dtype, self.device), identity_init, 10)
@@ -583,7 +588,9 @@ class PWLinManager(BasicManager):
     """Piecewise-linear coupling cells + roll layers (reference manager.py:456-499)."""
 
     def create_model(self, n_pass_through, n_cells, n_bins, NN, roll_step,
-                     identity_init=False, final_rank=None, activation="exp"):
+                     dev=None, identity_init=False, final_rank=None, activation="exp"):
+        """``dev``, the reference's device index, is ignored: the device is
+        the constructor's."""
         self._set_model(factory.build_pwlin_flow(
             self._gen, self.n_flow, n_pass_through, n_cells, n_bins, tuple(NN),
             roll_step, self.dtype, self.device, final_rank=final_rank,
@@ -594,8 +601,10 @@ class PWQuadManager(BasicManager):
     """Piecewise-quadratic cells; masked partition for n_flow > 7
     (reference manager.py:502-600)."""
 
-    def create_model(self, n_cells, n_bins, NN, identity_init=False,
+    def create_model(self, n_cells, n_bins, NN, dev=None, identity_init=False,
                      final_rank=None, activation="exp"):
+        """``dev``, the reference's device index, is ignored: the device is
+        the constructor's."""
         self._set_model(factory.build_pwquad_flow(
             self._gen, self.n_flow, n_cells, n_bins, tuple(NN), self.dtype,
             self.device, final_rank=final_rank, activation=activation),

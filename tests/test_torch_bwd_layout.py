@@ -30,8 +30,8 @@ def _masked_mini(gen):
 
 # The plans the port's tests and chip_smoke.py run the training kernels on
 # (nf_tpu's five training configurations, the 10-D flagship, and the other
-# flows of tests/test_torch_kernel.py), one with a hidden layer at
-# MAX_HIDDEN and a factored final layer among them.
+# flows of tests/test_torch_kernel.py), one with hidden layers at the
+# backward's local-array width and a factored final layer among them.
 PLANS = {
     "camel": lambda g: factory.build_pwquad_flow(g, 2, 2, 4, (3, 3, 3)),
     "masked_mini": _masked_mini,
@@ -44,7 +44,7 @@ PLANS = {
     "flagship10d_rank4": lambda g: factory.build_pwquad_flow(g, 10, 8, 8, (16, 16),
                                                              final_rank=4),
     "max_hidden_rank": lambda g: factory.build_pwquad_flow(
-        g, 2, 2, 4, (ps.MAX_HIDDEN, ps.MAX_HIDDEN), final_rank=3),
+        g, 2, 2, 4, (pt.BWD_LOCAL_HIDDEN, pt.BWD_LOCAL_HIDDEN), final_rank=3),
     "pwlin_8bins": lambda g: factory.build_pwlin_flow(g, 3, 1, 3, 8, (8, 8), 1),
     "affine_6": lambda g: factory.build_affine_flow(g, 3, 1, 2, (6,), 1),
 }

@@ -29,12 +29,22 @@ FLOWS = {
         g, 10, 8, 8, (16, 16), device=d, final_rank=4),
     "pwquad_squareplus_nohidden": lambda g, d: factory.build_pwquad_flow(
         g, 3, 3, 5, (), device=d, activation="squareplus"),
-    # hidden layers at MAX_HIDDEN and a factored final layer
+    # hidden layers at the backward's local-array width and a factored final
+    # layer
     "pwquad_max_hidden_rank": lambda g, d: factory.build_pwquad_flow(
-        g, 2, 2, 4, (ps.MAX_HIDDEN, ps.MAX_HIDDEN), device=d, final_rank=3),
+        g, 2, 2, 4, (pt.BWD_LOCAL_HIDDEN, pt.BWD_LOCAL_HIDDEN), device=d, final_rank=3),
     "pwlin": lambda g, d: factory.build_pwlin_flow(g, 3, 1, 3, 8, (8, 8), 1, device=d),
     "affine": lambda g, d: factory.build_affine_flow(g, 3, 1, 2, (6,), 1, device=d),
+    # beyond the kernels' old caps (32 bins, a hidden width of 64, 32
+    # latent dims, 256 layer inputs a cell): create_model(2, 4, [128, 128])
+    # among them
+    "pwquad_bins40_hidden96": lambda g, d: factory.build_pwquad_flow(
+        g, 2, 2, 40, (96, 96), device=d),
+    "pwquad_flow36_narrow": lambda g, d: factory.build_pwquad_flow(
+        g, 36, 2, 2, (4,), device=d),
+    "pwquad_wide128": lambda g, d: factory.build_pwquad_flow(g, 2, 2, 4, (128, 128), device=d),
 }
+OVER_CAPS = ["pwquad_bins40_hidden96", "pwquad_flow36_narrow", "pwquad_wide128"]
 
 
 def _model(name, device="cpu"):
@@ -94,14 +104,27 @@ def test_wrapper_rejects_bad_input():
 
 
 @pytest.mark.parametrize("n_flow,n_bins,nn", [
-    (2, ps.MAX_BINS + 1, (3,)),
-    (2, 4, (ps.MAX_HIDDEN + 1,)),
-    (ps.MAX_FLOW + 1, 2, (2,)),
+    (2, 33, (3,)),           # bins beyond the old cap of 32
+    (2, 4, (65,)),           # a hidden width beyond the old cap of 64
+    (33, 2, (2,)),           # latent dims beyond the old cap of 32
+    (2, 4, (128, 128)),      # create_model(2, 4, [128, 128]): 257 layer inputs a cell
 ])
-def test_encode_plan_refuses_plans_over_the_caps(n_flow, n_bins, nn):
+def test_plans_over_the_old_caps_get_a_launch(n_flow, n_bins, nn):
+    """Plans nf_tpu's kernels take, which the port's kernels once refused,
+    are encoded and given a launch by the sampler and by both training
+    kernels; the backward's per-thread arrays then live in its workspace."""
     model = factory.build_pwquad_flow(torch.Generator().manual_seed(0), n_flow, 2, n_bins, nn)
-    with pytest.raises(ValueError):
-        ps.encode_plan(model.flow, ps.fold_eval_params(model.flow, model))
+    desc, weights = ps.encode_plan(model.flow, ps.fold_eval_params(model.flow, model))
+    plan = ps.SamplerPlan(model.flow)
+    assert np.array_equal(plan.desc, desc) and plan.n_weights == weights.size
+    block, w_smem = plan.config
+    assert ps.sampler_smem_bytes(plan, block, w_smem) <= ps.SMEM_LIMIT
+    tplan = pt.TrainPlan(model.flow)
+    assert torch.equal(tplan.descriptor("cpu"), torch.as_tensor(desc))
+    for stats, (block, w_smem) in tplan.fwd_config.items():
+        assert pt.train_fwd_smem_bytes(tplan, block, w_smem, stats) <= ps.SMEM_LIMIT
+    assert pt.train_bwd_smem_bytes(tplan, *tplan.bwd_config) <= ps.SMEM_LIMIT
+    assert tplan.bwd_ws == pt.bwd_workspace_floats(tplan) > 0
 
 
 def test_encode_plan_layout():
@@ -205,6 +228,56 @@ def test_kernel_grid_stride_passes_match_plain_version(cuda, name):
     x_l, jac_l = ps.build_sampler(flow, model, take_latents=True)(w)
     torch.testing.assert_close(x_l, x_p, rtol=1e-4, atol=2e-5)
     torch.testing.assert_close(jac_l, jac_p, rtol=1e-3, atol=0)
+
+
+def _sampler_config(plan, w_smem):
+    """The sampler's launch for ``plan`` with the weights in shared memory or
+    through L1: the largest block that fits, or None."""
+    blocks = [b for b in ps.SAMPLER_BLOCKS + ps.SMALL_BLOCKS
+              if ps.sampler_smem_bytes(plan, b, w_smem) <= ps.SMEM_LIMIT]
+    return (max(blocks), w_smem) if blocks else None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("w_smem", [True, False])
+@pytest.mark.parametrize("name", ["pwquad_camel", "pwquad_masked_rank"] + OVER_CAPS)
+def test_sampler_at_scale_both_layouts_and_placements(cuda, name, w_smem):
+    """n = 2^21 + 333 with a counter offset: each thread of the grid takes
+    two or three tiles, the last one ragged.  Both variants in both
+    layouts against the plain version, with the weights in shared memory
+    and through L1; two launches bit-identical."""
+    model = _model(name, cuda)
+    flow = model.flow
+    config = _sampler_config(ps.SamplerPlan(flow), w_smem)
+    if config is None:
+        pytest.skip(f"{name}: no launch keeps the weights in shared memory")
+    plain = make_folded_forward(flow, model)
+    n, offset = (1 << 21) + 333, 7 << 21
+    w = torch.from_numpy(ps.philox_uniform(3, offset, n, flow.n_flow)).to(cuda)
+    x_p, jac_p = plain(w)
+    for layout in ("batch_major", "dim_major"):
+        seeded = ps.build_sampler(flow, model, layout=layout, config=config)
+        latents = ps.build_sampler(flow, model, take_latents=True, layout=layout, config=config)
+        for run in (lambda: seeded(3, n, offset=offset), lambda: latents(w)):
+            x, jac = run()
+            again = run()
+            assert torch.equal(again[0], x) and torch.equal(again[1], jac)
+            x = x.T if layout == "dim_major" else x
+            torch.testing.assert_close(x, x_p, rtol=1e-4, atol=2e-5)
+            torch.testing.assert_close(jac, jac_p, rtol=1e-3, atol=0)
+
+
+@pytest.mark.cuda
+def test_sampler_refuses_a_wrong_smem_count(cuda, monkeypatch):
+    """The C entry point refuses a launch whose shared-memory count differs
+    from its own; the wrapper raises, and nothing falls back."""
+    model = _model("pwquad_camel", cuda)
+    count = ps.sampler_smem_bytes
+    monkeypatch.setattr(ps, "sampler_smem_bytes", lambda *a: count(*a) + 4)
+    launches = ps.LAUNCHES
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        ps.build_sampler(model.flow, model)(1, 100)
+    assert ps.LAUNCHES == launches
 
 
 @pytest.mark.cuda
@@ -565,6 +638,90 @@ def test_train_forward_launches_bit_identical(cuda, name):
     first = pt.train_forward(plan, flat, w, with_stats=True)
     again = pt.train_forward(plan, flat, w, with_stats=True)
     assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OVER_CAPS)
+def test_train_backward_workspace_matches_plain_version(cuda, name):
+    """Beyond the backward's local arrays its per-thread arrays live in a
+    device workspace: forward, stats and backward against their plain
+    versions (the backward against float64, kinks masked) at two sizes, the
+    larger several grid passes; repeats bit-identical."""
+    model = _model(name, cuda)
+    plan = pt.TrainPlan(model.flow)
+    assert plan.bwd_ws > 0
+    flat = pt.fold_flow(model).detach()
+    for n in (333, 40000):
+        w = _latents(n, model.flow.n_flow, cuda)
+        xbar, jbar = _cotangents(n, model.flow.n_flow, cuda)
+        _hold_train(plan, flat, w, xbar, jbar)
+        _, jac, stage = pt.train_forward(plan, flat, w)
+        first = pt.train_backward(plan, flat, stage, jac, jbar, xbar)
+        again = pt.train_backward(plan, flat, stage, jac, jbar, xbar)
+        assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pwquad_camel", "pwquad_masked_rank", "pwlin", "affine"])
+def test_train_backward_workspace_equals_local_arrays(cuda, name):
+    """Within the local arrays' sizes the workspace kernel gives the
+    local-array kernel's results bit for bit: the same arithmetic in the same order,
+    only the arrays' place differs."""
+    model = _model(name, cuda)
+    plan = pt.TrainPlan(model.flow)
+    flat = pt.fold_flow(model).detach()
+    w = _latents(20000, model.flow.n_flow, cuda)
+    xbar, jbar = _cotangents(20000, model.flow.n_flow, cuda)
+    _, jac, stage = pt.train_forward(plan, flat, w)
+    local = pt.train_backward(plan, flat, stage, jac, jbar, xbar)
+    ws = pt.train_backward(plan, flat, stage, jac, jbar, xbar, workspace=True)
+    assert torch.equal(local[0], ws[0]) and torch.equal(local[1], ws[1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", OVER_CAPS)
+def test_train_backward_refuses_local_arrays_beyond_their_sizes(cuda, name):
+    """A plan beyond the local arrays' sizes with the workspace turned off
+    raises before any launch; nothing overruns the arrays."""
+    model = _model(name, cuda)
+    plan = pt.TrainPlan(model.flow)
+    flat = pt.fold_flow(model).detach()
+    n_flow = model.flow.n_flow
+    w = _latents(100, n_flow, cuda)
+    xbar, jbar = _cotangents(100, n_flow, cuda)
+    _, jac, stage = pt.train_forward(plan, flat, w)
+    launches = pt.BWD_LAUNCHES
+    with pytest.raises(ValueError, match="needs the workspace"):
+        pt.train_backward(plan, flat, stage, jac, jbar, xbar, workspace=False)
+    assert pt.BWD_LAUNCHES == launches
+
+
+@pytest.mark.cuda
+def test_wide_model_samples_integrates_and_trains_stale(cuda):
+    """create_model(2, 4, [128, 128]), which the kernels once refused:
+    sample, integrate and the stale trainer run on the card through the
+    three kernels."""
+    from nf_tpu_torch import PWQuadManager
+    from nf_tpu_torch.training import optimizers
+
+    def camel(x):
+        return (torch.exp(-((x[:, 0] - 0.75) ** 2 + (x[:, 1] - 0.75) ** 2) / 0.04)
+                + torch.exp(-((x[:, 0] - 0.25) ** 2 + (x[:, 1] - 0.25) ** 2) / 0.04))
+
+    NF = PWQuadManager(n_flow=2, seed=0, device="cuda")
+    NF.create_model(2, 4, [128, 128])
+    ps.LAUNCHES = pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = 0
+    NF._train_variance_forward_seq(camel, optimizers.adamax(2e-3, 1e-4), log=False,
+                                   batch_size=4000, epochs=4, mini_batch_size=2000,
+                                   preburn_time=0, pretty_progressbar=False, bn_stats="stale")
+    x, jac = NF.sample(5000)
+    sig, err = NF.integrate(camel, 2, 20000)
+    torch.cuda.synchronize()
+    assert (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES) == (8 + 1, 8)
+    assert ps.LAUNCHES == 1 + 2
+    assert x.shape == (5000, 2) and bool(torch.isfinite(jac).all())
+    assert bool(((x >= 0) & (x <= 1)).all())
+    assert sig > 0 and err > 0
 
 
 @pytest.mark.cuda

@@ -54,6 +54,16 @@ FLOWS = {
         jax.random.PRNGKey(4), 3, 1, 2, 4, (4,), 1, dt, activation="squareplus"),
     "affine": lambda dt: jfactory.build_affine_flow(
         jax.random.PRNGKey(6), 2, 1, 2, (6,), 1, dt),
+    # plans beyond the port's old kernel caps (32 bins, hidden width 64, 32
+    # latent dims), which nf_tpu's kernel takes; narrow elsewhere, since
+    # interpret mode unrolls every weight (n_flow 36 with pwquad cells would
+    # take 12 masked cells)
+    "pwquad_bins40": lambda dt: jfactory.build_pwquad_flow(
+        jax.random.PRNGKey(3), 2, 2, 40, (3,), dt),
+    "pwquad_hidden96": lambda dt: jfactory.build_pwquad_flow(
+        jax.random.PRNGKey(7), 2, 2, 4, (96,), dt),
+    "pwlin_flow36": lambda dt: jfactory.build_pwlin_flow(
+        jax.random.PRNGKey(5), 36, 18, 2, 2, (2,), 18, dt),
 }
 
 
