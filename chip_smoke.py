@@ -20,6 +20,13 @@ each beside the least time the card could take for its work (its bound) and
 the share of that bound it reaches.  Phase 11 runs ``create_model(2, 4, [128,
 128])``, a model the kernels once refused, through ``sample``, ``integrate``
 and the stale trainer, each kernel against its plain version on that plan.
+Phase 12 drives the event-generation side on the trained camel model
+(bench.py's stage ``unweight_qmc``): the unweighting efficiency, partial and
+plain ``generate_unweighted`` and ``integrate(method="qmc")``, all through
+the sampler kernel; then the device Sobol on the card against the CPU, the
+kernel on Sobol latents against its plain version, the round trip through
+``make_folded_inverse`` (camel and the 10-D flagship), the QMC integrals
+against the analytic value and the unweighted events' distribution.
 Prints one ``{"kernels": [...]}`` line;
 the last line of standard output is ``{"ok": true, "device": {...}}``; any
 failed check exits non-zero before it is printed.  Exits non-zero at once
@@ -118,7 +125,36 @@ def bound_ms(flops, nbytes):
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
+def device_profile(tag, what, fn, card):
+    """Run ``fn()`` once under ``torch.profiler`` and print the device time
+    of its kernel and copy rows against the wall time, and the six largest
+    rows."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the device's own records (kernels, copies): an operator's device time,
+    # and an annotated range's span on the device (the optimizer step's),
+    # repeat those of the kernels inside them
+    events = [e for e in prof.key_averages()
+              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
+    dev_us = [e.self_device_time_total for e in events]
+    total = sum(dev_us)
+    check(total > 0, f"{what} profile shows device time")
+    print(f"{tag} {what} under the profiler: device {total / 1e3:.3f} ms of "
+          f"{wall * 1e3:.3f} ms wall (busy {total / 1e6 / wall:.1%}) {card}")
+    for us, e in sorted(zip(dev_us, events), key=lambda t: -t[0])[:6]:
+        print(f"{tag}   {us / 1e3:.3f} ms ({us / total:.1%}) x{e.count} {e.key[:90]}")
+
+
 def main():
+    import numpy as np
     import torch
 
     # ---- phase 1: device
@@ -538,31 +574,11 @@ def main():
 
     # ---- phase 9b: device profile of the trainers at batch 10000, and of
     # bench.py's flagship stale stage
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     for what, mgr in (("stale trainer, batch 10000", NF_s), ("batch trainer, batch 10000", NF),
                       ("flagship stale trainer, batch 2^20 / 2^18", flagship_stale)):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            mgr.benchmark_train_step(reps=1)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-        # the device's own records (kernels, copies): an operator's device
-        # time, and an annotated range's span on the device (the optimizer
-        # step's), repeat those of the kernels inside them
-        events = [e for e in prof.key_averages()
-                  if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-        dev_us = [e.self_device_time_total for e in events]
-        total = sum(dev_us)
-        check(total > 0, f"{what} profile shows device time")
         epochs_run = 2 * (4 if "stale" in what else 1)
-        print(f"phase9b {what}, {epochs_run} epochs under the "
-              f"profiler: device {total / 1e3:.3f} ms of {wall * 1e3:.3f} ms wall "
-              f"(busy {total / 1e6 / wall:.1%}) {card}")
-        for us, e in sorted(zip(dev_us, events), key=lambda t: -t[0])[:6]:
-            print(f"phase9b   {us / 1e3:.3f} ms ({us / total:.1%}) x{e.count} {e.key[:90]}")
+        device_profile("phase9b", f"{what}, {epochs_run} epochs",
+                       lambda: mgr.benchmark_train_step(reps=1), card)
 
     # ---- phase 10: training-kernel timings (CUDA events, median of 11)
     train_t, bounds = {}, {}
@@ -654,6 +670,131 @@ def main():
     hold_train("wide128 trained n=10000", wide_plan, pt.fold_flow(NF_w._model).detach(),
                torch.rand((10000, 2), generator=gen, device=dev))
 
+    # ---- phase 12: the event-generation side (bench.py's stage unweight_qmc,
+    # bench.py:423-453) on the phase 5 trained camel model: the unweighting
+    # efficiency, unweighted events (partial, then plain) and randomized-QMC
+    # integrals, all through the sampler kernel; then checks 1-6
+    from nf_tpu_torch.flows.fast_eval import make_folded_inverse
+    from nf_tpu_torch.training.unweight import generate_unweighted
+    from nf_tpu_torch.utils import qmc
+
+    flow, best = NF._flow, NF.best_model
+    ps.LAUNCHES = 0
+    torch.cuda.synchronize()
+    x_u, jac_u = NF.sample(100_000)
+    w_u = camel(x_u) * jac_u
+    unw_eff = float(w_u.mean() / w_u.max())
+    check(ps.LAUNCHES == 1, f"sample(100000) launched the kernel {ps.LAUNCHES} times")
+    for rep in (21, 22):   # the second call is timed
+        before = ps.LAUNCHES
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev, wts, info = generate_unweighted(
+            flow, best, camel, torch.Generator(device=dev).manual_seed(rep), n_events=1 << 20,
+            batch=1 << 22, wmax_quantile=0.999, partial_unweight=True)
+        unw_s = time.perf_counter() - t0
+        # the w_max pilot and at least one proposal batch
+        check(ps.LAUNCHES - before >= 2, f"generate_unweighted launched the kernel "
+              f"{ps.LAUNCHES - before} times")
+    kish = float(wts.astype(np.float64).sum()) ** 2 / float((wts.astype(np.float64) ** 2).sum())
+    before = ps.LAUNCHES
+    ev_p, eff_p, over_p = generate_unweighted(
+        flow, best, camel, torch.Generator(device=dev).manual_seed(23), n_events=1 << 20,
+        batch=1 << 22, wmax_quantile=0.999)
+    check(ps.LAUNCHES - before >= 2, "plain generate_unweighted launched the kernel")
+    before = ps.LAUNCHES
+    sig_q, err_q = NF.integrate(camel, 8, 65536, seed=11, method="qmc")
+    t0 = time.perf_counter()
+    sig_q2, err_q2 = NF.integrate(camel, 8, 1 << 21, seed=12, method="qmc")
+    qmc_s = time.perf_counter() - t0
+    check(ps.LAUNCHES - before == 16, f"integrate(method='qmc') x2 launched the kernel "
+          f"{ps.LAUNCHES - before} times, not 8 + 8")
+    torch.cuda.synchronize()
+    eventgen_launches = ps.LAUNCHES
+    print(f"phase12: unweighting efficiency mean(w)/max(w) over sample(100000) = {unw_eff:.5f}")
+    print(f"phase12: generate_unweighted(2^20 events, batch 2^22, quantile 0.999, partial), "
+          f"second call: {len(ev)} events in {unw_s * 1e3:.2f} ms = {len(ev) / unw_s:.4e} "
+          f"events/s, Kish-effective {kish:.1f} = {kish / unw_s:.4e} events/s; eff "
+          f"{info['eff']:.5f}, accept rate {info['accept_rate']:.5f}, overweight "
+          f"{info['n_overweight']}, w_max {info['w_max']:.5f} (host clock) {card}")
+    print(f"phase12: plain generate_unweighted: {len(ev_p)} events, efficiency {eff_p:.5f}, "
+          f"overweight {over_p}")
+    for neval, (sig, err) in ((65536, (sig_q, err_q)), (1 << 21, (sig_q2, err_q2))):
+        print(f"phase12: integrate(8, {neval}, method='qmc') = {sig:.7f} +- {err:.2e} (exact "
+              f"{exact:.7f}, rel err {abs(sig - exact) / exact:.2e})")
+    print(f"phase12: integrate(8, 2^21, method='qmc') in {qmc_s * 1e3:.3f} ms = "
+          f"{8 * (1 << 21) / qmc_s:.4e} samples/s (host clock) {card}")
+    print(f"phase12: sampler kernel launches {eventgen_launches}")
+
+    # check 1: the device Sobol's integer arithmetic on the card equals the CPU's
+    for dim, n in ((2, 1 << 18), (8, 1 << 16)):
+        gen_s = qmc.make_device_sobol(dim)
+        for s in (11, (12 + 0x9E3779B9 * 7) & 0xFFFFFFFF):
+            check(torch.equal(gen_s(n, s, dev).cpu(), gen_s(n, s, "cpu")),
+                  f"device Sobol dim {dim} seed {s}: cuda != cpu")
+    print("phase12 check 1: device Sobol on cuda equals cpu bit for bit (dims 2, 8; two seeds)")
+    # check 2: the kernel in operand mode on Sobol latents against its plain version
+    w_q = qmc.make_device_sobol(2)(1 << 21, 12, dev)
+    x_k, jac_k = ps.build_sampler(flow, best, take_latents=True)(w_q)
+    x_p, jac_p = make_folded_forward(flow, best)(w_q)
+    err_x = float((x_k - x_p).abs().max())
+    max_abs_err = max(max_abs_err, err_x)
+    print(f"phase12 check 2: kernel on Sobol latents 2^21: max|dx|={err_x:.3e} "
+          f"max|djac/jac|={float(((jac_k - jac_p) / jac_p).abs().max()):.3e}")
+    check(torch.allclose(x_k, x_p, rtol=1e-4, atol=2e-5), "Sobol operand x vs plain")
+    check(torch.allclose(jac_k, jac_p, rtol=1e-3, atol=0.0), "Sobol operand jac vs plain")
+    del x_k, jac_k, x_p, jac_p
+    # where a QMC replication's time goes: the device Sobol and the kernel
+    gen_q = qmc.make_device_sobol(2)
+    lat_kernel = ps.build_sampler(flow, best, take_latents=True)
+    sobol_ms = time_ms(lambda: gen_q(1 << 21, 12, dev))
+    operand_ms = time_ms(lambda: lat_kernel(w_q))
+    print(f"phase12: one QMC replication of 2^21: device Sobol {sobol_ms:.4f} ms, kernel on "
+          f"its points {operand_ms:.4f} ms (CUDA events) {card}")
+    device_profile("phase12", "generate_unweighted(2^20 events, batch 2^22, partial)",
+                   lambda: generate_unweighted(
+                       flow, best, camel, torch.Generator(device=dev).manual_seed(24),
+                       n_events=1 << 20, batch=1 << 22, wmax_quantile=0.999,
+                       partial_unweight=True), card)
+    device_profile("phase12", "integrate(8, 2^21, method='qmc')",
+                   lambda: NF.integrate(camel, 8, 1 << 21, seed=13, method="qmc"), card)
+    # check 3: the kernel's x through make_folded_inverse gives back the
+    # latents; samples within KINK of a kink of the map are masked
+    NF_f = PWQuadManager(n_flow=10, seed=4, device="cuda")
+    NF_f.create_model(8, 8, [16, 16], final_rank=4)
+    for name, m in (("camel2d_trained", best), ("flagship10d_rank4", NF_f.best_model)):
+        w = torch.rand((1 << 18, m.flow.n_flow), generator=gen, device=dev)
+        x_k, jac_k = ps.build_sampler(m.flow, m, take_latents=True)(w)
+        w_back, jac_inv = make_folded_inverse(m.flow, m)(x_k)
+        keep = pt.kink_distance(m.flow, pt.fold_flow(m).detach().double(), w.double()) > KINK
+        err_w = (w_back - w).abs().amax(1)
+        err_j = (jac_k * jac_inv - 1).abs()
+        print(f"phase12 check 3 {name} 2^18: max|w_back - w|={float(err_w[keep].max()):.3e} "
+              f"max|jac*jac_inv - 1|={float(err_j[keep].max()):.3e} with the "
+              f"{int((~keep).sum())} samples within {KINK:g} of a kink masked; unmasked "
+              f"{float(err_w.max()):.3e}, {float(err_j.max()):.3e}")
+        check(float(err_w[keep].max()) <= 2e-4, f"{name} round trip latents")
+        check(float(err_j[keep].max()) <= 1e-3, f"{name} round trip jac * jac_inv")
+    # check 4: the QMC integrals
+    for sig, err in ((sig_q, err_q), (sig_q2, err_q2)):
+        check(math.isfinite(sig) and err > 0 and abs(sig - exact) <= 5 * err + 0.01 * exact,
+              "QMC |sig - exact| <= 5 err + 1%")
+    # check 5: the partially unweighted events are f-distributed: by the
+    # camel's symmetry, half the weight lies at x0 > 0.5
+    share = float(wts[ev[:, 0] > 0.5].astype(np.float64).sum() / wts.astype(np.float64).sum())
+    sigma = math.sqrt(0.25 / kish)
+    print(f"phase12 check 5: weighted share of events at x0 > 0.5 = {share:.5f} "
+          f"(0.5 +- {sigma:.1e}); min weight {float(wts.min()):.5f}")
+    check(abs(share - 0.5) <= 5 * sigma, "partial events' weighted share at x0 > 0.5")
+    check(bool((wts >= 1).all()) and len(ev) >= 1 << 20 and ev.shape[1] == 2,
+          "partial events: weights >= 1, at least 2^20 events")
+    # check 6: plain mode: efficiency = accepted / proposals (whole batches)
+    proposals = len(ev_p) / eff_p
+    check(abs(proposals - round(proposals)) < 1e-6 and round(proposals) % (1 << 22) == 0,
+          f"plain efficiency {eff_p} is not accepted / proposals")
+    check(len(ev_p) >= 1 << 20 and bool(((ev_p >= 0) & (ev_p <= 1)).all()),
+          "plain events in [0, 1]^2")
+
     camel_t = timings["camel2d_trained"]
     camel_tt = train_t["camel2d_trained"]
     src = "nf_tpu_torch/ops/csrc/pwquad_train.cu"
@@ -662,7 +803,7 @@ def main():
         "route": "cuda",
         "source": "nf_tpu_torch/ops/csrc/pwquad_sampler.cu",
         "replaces": "nf_tpu/ops/pwquad_sampler.py:286",
-        "launches": launches,
+        "launches": launches + eventgen_launches,
         "max_abs_err": max_abs_err,
         "ms": camel_t["kernel_seeded_ms"],
         "plain_ms": camel_t["plain_rand_plus_folded_ms"],

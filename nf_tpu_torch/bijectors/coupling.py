@@ -1,4 +1,4 @@
-"""Coupling-cell transforms (Muller et al. 2019, sections 4.1/4.2), forward.
+"""Coupling-cell transforms (Muller et al. 2019, sections 4.1/4.2).
 
 Counterpart of ``nf_tpu.bijectors.coupling``.  Each cell kind has
 
@@ -8,7 +8,12 @@ Counterpart of ``nf_tpu.bijectors.coupling``.  Each cell kind has
     (:mod:`nf_tpu_torch.flows.fast_eval`);
   * :func:`cell_forward` ``(cfg, cond, x, jac, train) -> (y, jac')`` runs the
     conditioner on the pass-through dims and applies the cell's transform
-    (nf_tpu's ``affine_forward`` / ``pwlin_forward`` / ``pwquad_forward``).
+    (nf_tpu's ``affine_forward`` / ``pwlin_forward`` / ``pwquad_forward``);
+  * an inverse ``*_inverse(z, yB, ...) -> (xB, factor)`` with ``factor``
+    the forward transform's Jacobian at the recovered point (nf_tpu's
+    ``affine_inverse`` / ``pwlin_inverse`` / ``pwquad_inverse``), applied
+    per cell by :func:`nf_tpu_torch.flows.model.apply_cell_inverse`.  The
+    pass-through dims condition both directions.
 
 ``jac`` is the running *multiplicative* Jacobian [B], as in nf_tpu and the
 reference.  Bin lookups use ``torch.gather``; the bin index is clamped to the
@@ -142,4 +147,96 @@ def cell_forward(cfg, cond, x, jac, train: bool):
     xA, xB = x[:, :pt], x[:, pt:]
     yB, factor = transform(cfg, cond(xA, train), xB)
     return torch.cat([xA, yB], dim=1), jac * factor
+
+
+
+# ---------------------------------------------------------------------------
+# Inverse transforms (x -> w; nf_tpu coupling.py:304-422)
+# ---------------------------------------------------------------------------
+
+def affine_inverse(z, yB):
+    """Invert y_B = atan(x_B * 20 e^s + relu(t)) / (pi/2); ``factor`` is the
+    forward factor of :func:`affine_transform`, the single 2/pi included."""
+    t = yB.shape[1]
+    z = z.reshape(z.shape[0], 2, t)
+    s0 = torch.exp(z[:, 0])
+    s1 = torch.relu(z[:, 1])
+    u = torch.tan(yB * (math.pi / 2.0))
+    xB = (u - s1) / (20.0 * s0)
+    diff = 1.0 / (u * u + 1.0)
+    factor = torch.prod(20.0 * s0, dim=1) * (1.0 / (math.pi / 2.0)) \
+        * torch.prod(diff, dim=1)
+    return xB, factor
+
+
+def pwlin_inverse(z, yB, n_bins: int, act: str = "exp"):
+    """Invert the piecewise-linear CDF: the bin by CDF edge (clamped to the
+    last bin, so yB == 1 stays in it), then a linear solve."""
+    t = yB.shape[1]
+    q = positivity(z.reshape(z.shape[0], t, n_bins), act)
+    qsum = torch.cumsum(q, dim=-1)
+    qnorm = qsum[:, :, -1:]
+    q = q / (qnorm / n_bins)
+    qsum = qsum / qnorm
+    b = torch.sum((qsum <= yB.unsqueeze(-1)).long(), dim=-1)
+    b = torch.clamp(b, max=n_bins - 1)
+    cdf_lo = _take(F.pad(qsum, (1, 0)), b)
+    q_b = _take(q, b)
+    alphas = (yB - cdf_lo) / q_b                  # in [0, 1/n_bins)
+    xB = (b.to(yB.dtype) + alphas * n_bins) / n_bins
+    return xB, torch.prod(q_b, dim=-1)
+
+
+def pwquad_invert(v_raw, w_raw, yB, act: str = "exp"):
+    """Invert :func:`pwquad_compute`: the bin by the CDF at its edges, then
+    the bin's quadratic solved for alpha by the root that does not cancel,
+    ``alpha = 2c / (v_lo + sqrt(v_lo^2 + 2 dv c))``.  Returns ``(xB,
+    factor)``, ``factor`` the forward PDF product at the recovered point."""
+    n_bins = w_raw.shape[-1]
+
+    w = positivity(w_raw, act)
+    wsum = torch.cumsum(w, dim=-1)
+    wnorm = wsum[:, :, -1:]
+    w = w / wnorm
+    wsum = wsum / wnorm
+
+    v = positivity(v_raw, act)
+    vnorm = torch.sum((v[:, :, :-1] + v[:, :, 1:]) * 0.5 * w, dim=-1, keepdim=True)
+    v = v / vnorm
+
+    vw_body = torch.cumsum((v[:, :, :-1] + v[:, :, 1:]) * 0.5 * w, dim=-1)
+    b = torch.sum((vw_body <= yB.unsqueeze(-1)).long(), dim=-1)
+    b = torch.clamp(b, max=n_bins - 1)
+
+    w_b = _take(w, b)
+    edge_b = _take(F.pad(wsum, (1, 0)), b)
+    vw_b = _take(F.pad(vw_body, (1, 0)), b)
+    v_lo = _take(v, b)
+    v_hi = _take(v, b + 1)
+
+    # 0.5 dv w alpha^2 + v_lo w alpha + vw_b = yB
+    c = (yB - vw_b) / w_b
+    dv = v_hi - v_lo
+    disc = torch.sqrt(torch.clamp_min(v_lo * v_lo + 2.0 * dv * c, 0.0))
+    linear = c / torch.where(v_lo == 0, 1.0, v_lo)
+    alphas = torch.where(torch.abs(dv) > 1e-12 * (v_lo + v_hi),
+                         2.0 * c / torch.where(disc + v_lo == 0, 1.0, disc + v_lo),
+                         linear)
+    xB = edge_b + alphas * w_b
+    pdf = v_lo + dv * alphas
+    return xB, torch.prod(pdf, dim=-1)
+
+
+def pwquad_inverse(z, yB, n_bins: int, act: str = "exp"):
+    z = z.reshape(z.shape[0], yB.shape[1], 2 * n_bins + 1)
+    return pwquad_invert(z[:, :, : n_bins + 1], z[:, :, n_bins + 1:], yB, act)
+
+
+def inverse_transform(cfg, z, yB):
+    """The inverse of :func:`transform`: ``(xB, forward factor)``."""
+    if cfg.kind == "affine":
+        return affine_inverse(z, yB)
+    if cfg.kind == "pwlin":
+        return pwlin_inverse(z, yB, cfg.n_bins, cfg.activation)
+    return pwquad_inverse(z, yB, cfg.n_bins, cfg.activation)
 

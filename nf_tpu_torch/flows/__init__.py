@@ -4,12 +4,13 @@ from nf_tpu_torch.flows.factory import (
     build_pwlin_flow,
     build_pwquad_flow,
 )
-from nf_tpu_torch.flows.model import CellCfg, Flow, FlowModel, make_cell_cfg
+from nf_tpu_torch.flows.model import CellCfg, Flow, FlowModel, inverse, make_cell_cfg
 
 __all__ = [
     "Flow",
     "CellCfg",
     "FlowModel",
+    "inverse",
     "make_cell_cfg",
     "build_affine_flow",
     "build_pwlin_flow",

@@ -3,7 +3,8 @@
 Counterpart of ``nf_tpu.flows.model``.  ``CellCfg`` and ``Flow`` are the same
 static plan as nf_tpu's (the ``ops`` tuple compares equal for equal
 arguments); :class:`FlowModel` holds one conditioner per cell, with the
-BatchNorm running statistics as buffers.
+BatchNorm running statistics as buffers.  :func:`inverse` maps points back
+to latents.
 """
 
 from __future__ import annotations
@@ -115,3 +116,34 @@ class FlowModel(nn.Module):
         nf_tpu's forward whose returned state is dropped."""
         buffers = {k: b.clone() for k, b in self.named_buffers()}
         return torch.func.functional_call(self, buffers, (w, train))
+
+
+def apply_cell_inverse(cfg: CellCfg, cond, y, jac, train: bool = False):
+    """Undo one coupling cell; ``jac`` gains the inverse map's Jacobian, the
+    reciprocal of the forward factor at the recovered point."""
+    pt = cfg.pass_through
+    yA, yB = y[:, :pt], y[:, pt:]
+    xB, factor = coupling.inverse_transform(cfg, cond(yA, train), yB)
+    return torch.cat([yA, xB], dim=1), jac / factor
+
+
+def inverse(flow: Flow, model: FlowModel, x: torch.Tensor, train: bool = False):
+    """Map points ``x [B, n_flow]`` back to latents: ``(w, jac_inv)``.
+
+    The inverse of :meth:`FlowModel.forward`: the ops run in reverse, each
+    permutation undone (a roll by its negative, a gather by a scatter and a
+    scatter by a gather).  ``jac_inv`` is the inverse map's Jacobian, the
+    reciprocal of the forward Jacobian at the recovered point.  The
+    conditioners run in eval mode unless ``train``, in which case their
+    BatchNorm layers normalize with this batch and move their buffers, as
+    the forward's train mode does.  Counterpart of nf_tpu's
+    ``flows.model.inverse``.
+    """
+    y = x
+    jac = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+    for op in reversed(flow.ops):
+        if op[0] == "cell":
+            y, jac = apply_cell_inverse(flow.cells[op[1]], model.cells[op[1]], y, jac, train)
+        else:
+            y = y[:, inverse_permutation(permutation_source(op, flow.n_flow))]
+    return y, jac

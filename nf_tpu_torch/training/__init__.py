@@ -1,4 +1,4 @@
-from nf_tpu_torch.training import manager, optimizers
+from nf_tpu_torch.training import manager, optimizers, unweight
 from nf_tpu_torch.training.manager import (
     AffineManager,
     BasicManager,
@@ -9,6 +9,7 @@ from nf_tpu_torch.training.manager import (
 __all__ = [
     "manager",
     "optimizers",
+    "unweight",
     "BasicManager",
     "AffineManager",
     "PWLinManager",

@@ -24,9 +24,14 @@ layers' differ.  The port follows the kernel path on every device: its CPU
 trainer runs the kernels' plain versions, and is held against nf_tpu's
 kernel-path semantics.
 
+``select_best_by="ess"`` snapshots the best model by the epoch's
+effective-sample fraction E[w]^2 / E[w^2] instead of the least loss.
+``integrate(method="qmc")`` is randomized quasi-Monte-Carlo
+(:mod:`nf_tpu_torch.utils.qmc`).
+
 Not ported yet, and refused with ``NotImplementedError``: ``mesh``,
-``resume_from``, ``select_best_by="ess"``, ``epochs_per_sync`` other than 1,
-``logdir`` / ``run`` logging and checkpoints, and ``integrate(method="qmc")``.
+``resume_from``, ``epochs_per_sync`` other than 1, and ``logdir`` / ``run``
+logging and checkpoints.
 """
 
 from __future__ import annotations
@@ -54,16 +59,16 @@ def epoch_step(model, optimizer, f, ws, preburn: bool, maxf, loss_mode: str,
     ``forward(w) -> (x, jac)`` maps a minibatch; the default is the model's
     train-mode forward, which moves the BatchNorm buffers.
 
-    Returns a tensor ``[loss, var, integ, err]`` (still on the device).
-    Counterpart of the epoch body of nf_tpu's trainer
-    (training/manager.py:466-564).
+    Returns a tensor ``[loss, var, integ, err, ess]`` (still on the device),
+    ``ess = mean(fres)^2 / mean(fres^2)`` over the minibatches.  Counterpart
+    of the epoch body of nf_tpu's trainer (training/manager.py:466-564).
     """
     if forward is None:
         def forward(w):
             return model(w, True)
     mb = ws[0].shape[0]
     optimizer.zero_grad(set_to_none=True)
-    ls, iis, eis, vis = [], [], [], []
+    ls, iis, eis, vis, qis = [], [], [], [], []
     for w in ws:
         x, jacv = forward(w)
         if preburn:
@@ -91,14 +96,17 @@ def epoch_step(model, optimizer, f, ws, preburn: bool, maxf, loss_mode: str,
         iis.append(torch.mean(fres))
         eis.append(torch.var(fres))
         vis.append(torch.var(fXJ ** 2) / mb)
+        qis.append(torch.mean(fres ** 2))
     with torch.no_grad():
         for p in model.parameters():
             if p.grad is not None:
                 p.grad.div_(len(ws))
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
+    mean_w = torch.mean(torch.stack(iis))
+    ess = mean_w ** 2 / torch.clamp_min(torch.mean(torch.stack(qis)), 1e-300)
     return torch.stack([torch.mean(torch.stack(ls)), torch.sum(torch.stack(vis)),
-                        torch.mean(torch.stack(iis)), torch.mean(torch.stack(eis))])
+                        mean_w, torch.mean(torch.stack(eis)), ess])
 
 
 def stale_forward(plan, model):
@@ -226,7 +234,7 @@ class BasicManager:
     @staticmethod
     def _epoch_runner(model, optimizer, uniform, f, maxf, loss_mode, pathwise, plan,
                       stats_every, stats_batch):
-        """``run_epoch(i, preburn, ws) -> [loss, var, integ, err]`` for global
+        """``run_epoch(i, preburn, ws) -> [loss, var, integ, err, ess]`` for global
         epoch ``i``: the batch-statistics step, or with a :class:`TrainPlan`
         the stale one, refreshing the statistics on latents drawn by
         ``uniform(shape)`` when ``i % stats_every == 0`` (nf_tpu
@@ -261,13 +269,14 @@ class BasicManager:
         reference's device index, between ``run`` and ``mini_batch_size``) is
         accepted and ignored: the device is the constructor's.  ``bn_stats="stale"``
         trains with the running statistics fixed within each epoch and
-        refreshed every ``stats_every`` epochs (module docstring).  Returns
+        refreshed every ``stats_every`` epochs (module docstring).
+        ``select_best_by="ess"`` snapshots the epoch of the largest
+        effective-sample fraction instead of the least loss.  Returns
         ``(integral, error)`` when ``integrate`` else ``(0, 0)``.
         """
         for name, value, ported in (
                 ("mesh", mesh, mesh is None),
                 ("resume_from", resume_from, resume_from is None),
-                ("select_best_by", select_best_by, select_best_by != "ess"),
                 ("epochs_per_sync", epochs_per_sync, epochs_per_sync == 1),
                 ("logdir", logdir, logdir is None),
                 ("run", run, run is None)):
@@ -275,6 +284,8 @@ class BasicManager:
                 _not_ported(name, value)
         if bn_stats not in ("batch", "stale"):
             raise ValueError(f"unknown bn_stats {bn_stats!r}")
+        if select_best_by not in ("loss", "ess"):
+            raise ValueError(f"unknown select_best_by {select_best_by!r}")
         if loss_mode not in ("var", "est", "kl"):
             print("Unknown loss function")
             return
@@ -341,6 +352,7 @@ class BasicManager:
               "counter": 0, "last_loss": 1000.0}
         t_start = time.time()
         epochs_end = epoch_start + epochs
+        self.best_ess = -math.inf
 
         pbar = None
         if pretty_progressbar:
@@ -351,7 +363,7 @@ class BasicManager:
             except ImportError:
                 pass
 
-        def process_epoch(i, loss, var_val, integ_e, err_e):
+        def process_epoch(i, loss, var_val, integ_e, err_e, ess):
             """Host state machine for one finished epoch (reference
             manager.py:282-327).  Returns True to stop training."""
             integ[i - epoch_offset + 1] += integ_e
@@ -371,7 +383,9 @@ class BasicManager:
                     "eta_s": elapsed / max(done, 1) * (epochs - done),
                 })
 
-            if (save_best or log) and loss < self.best_loss and not sm["preburner"]:
+            improved = ess > self.best_ess if select_best_by == "ess" else loss < self.best_loss
+            if (save_best or log) and improved and not sm["preburner"]:
+                self.best_ess = ess
                 self.best_loss = loss
                 self.best_var = var_val
                 self.best_loss_rel = loss / self.int_loss
@@ -408,8 +422,7 @@ class BasicManager:
         for i in range(epoch_start, epochs_end):
             ws = [self._uniform((mini_batch_size, n_flow)) for _ in range(n_minibatches)]
             stats = run_epoch(i, sm["preburner"], ws)
-            loss, var_val, integ_e, err_e = stats.tolist()  # the epoch's sync
-            if process_epoch(i, loss, var_val, integ_e, err_e):
+            if process_epoch(i, *stats.tolist()):  # the epoch's sync
                 break
 
         if pbar is not None:
@@ -515,15 +528,21 @@ class BasicManager:
         per iteration, each with its own range of the Philox counter, the
         integrand reading the kernel's dim-major output.  The per-iteration
         means and variances stay on the device; the result is read once.
+
+        ``method="qmc"`` is randomized quasi-Monte-Carlo: ``nitn``
+        Owen-scrambled Sobol replications of ``neval`` points (rounded up to
+        a power of two) through the eval-mode map, whatever
+        ``best_eval_mode`` says; the error is the standard error across
+        replications and ``combine`` is ignored (:meth:`_integrate_qmc`).
         """
         if self.best_model is None:
             print("No model has been trained")
             return (0, 0)
         if mesh is not None:
             _not_ported("mesh", mesh)
-        if method == "qmc":
-            _not_ported("method", method)
         neval, nitn = int(neval), int(nitn)
+        if method == "qmc":
+            return self._integrate_qmc(f, nitn, neval, seed)
         method = self._resolve_method(method, None)
         gen = self._generator(seed)
         model = self.best_model
@@ -554,6 +573,43 @@ class BasicManager:
             sig, sig_err = combine_iterations(torch.stack(means), torch.stack(variances),
                                               neval, nitn, combine)
             sig, sig_err = torch.stack([sig, sig_err]).tolist()
+        return (sig, sig_err)
+
+    def _integrate_qmc(self, f, nitn, neval, seed):
+        """RQMC through the best model's eval-mode map (nf_tpu
+        manager.py:1011-1026, 1108-1137).  The base seed is ``seed``, else a
+        draw from the manager's generator in [0, 2^31 - 1).  On a CUDA device
+        the points come from :func:`~nf_tpu_torch.utils.qmc.make_device_sobol`
+        and the map is the sampler kernel in operand mode, all replications
+        without a host sync; elsewhere scipy's points go through the folded
+        forward in the manager's dtype."""
+        from nf_tpu_torch.utils import qmc
+
+        base = seed if seed is not None else int(torch.randint(
+            0, 2 ** 31 - 1, (1,), generator=self._gen, device=self.device))
+        model = self.best_model
+        with torch.no_grad():
+            if self.device.type == "cuda":
+                from nf_tpu_torch.ops.pwquad_sampler import build_sampler
+                sampler = build_sampler(self._flow, model, take_latents=True)
+
+                def eval_mean(w):
+                    x, jacv = sampler(w)
+                    return torch.mean(f(x) * jacv)
+
+                sig, sig_err, _ = qmc.rqmc_integrate_device(eval_mean, self.n_flow, nitn,
+                                                            neval, base, self.device)
+            else:
+                from nf_tpu_torch.flows.fast_eval import make_folded_forward
+                forward = make_folded_forward(self._flow, model, self.dtype)
+
+                def eval_mean(w):
+                    x, jacv = forward(torch.as_tensor(w, device=self.device))
+                    return torch.mean(f(x) * jacv)
+
+                sig, sig_err, _ = qmc.rqmc_integrate(
+                    eval_mean, self.n_flow, nitn, neval, base,
+                    dtype=np.float64 if self.dtype == torch.float64 else np.float32)
         return (sig, sig_err)
 
     # -- warm-up forward (reference manager.py:592-598) ----------------------

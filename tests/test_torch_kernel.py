@@ -11,6 +11,7 @@ Without a card the ``cuda`` tests skip; the rest run anywhere.
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -753,3 +754,60 @@ def test_fused_train_launches_both_kernels(cuda):
                for p in model.parameters())
     with pytest.raises(ValueError):
         pt.train_forward(plan, pt.fold_flow(model).detach(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dim", [1, 2, 8, 36])
+def test_device_sobol_on_the_card_equals_the_cpu(cuda, dim):
+    """The Sobol ladder's int64 arithmetic, masks and split products give
+    the same bits on the card as on the CPU."""
+    from nf_tpu_torch.utils import qmc
+    gen = qmc.make_device_sobol(dim)
+    for seed in (0, 11, (3 + 0x9E3779B9 * 5) & 0xFFFFFFFF):
+        assert torch.equal(gen(1 << 14, seed, cuda).cpu(), gen(1 << 14, seed, "cpu"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,tol", [("pwquad_camel", 2e-4), ("pwquad_masked_rank", 2e-4),
+                                      ("pwlin", 2e-4), ("affine", 2e-3)])
+def test_folded_inverse_undoes_the_kernel(cuda, name, tol):
+    """The kernel's x through make_folded_inverse gives back its latents to
+    ``tol``, and jac * jac_inv = 1 to ``5 tol``, on the samples away from a
+    kink of the map.  The affine cells' atan saturates near 1, where one
+    float32 unit of x moves the recovered latent by up to 1.6e-4 (the plain
+    version with x one unit lower, on the CPU): hence its looser bound."""
+    from nf_tpu_torch.flows.fast_eval import make_folded_inverse
+    model = _model(name, cuda)
+    flow = model.flow
+    w = _latents(1 << 16, flow.n_flow, cuda)
+    x, jac = ps.build_sampler(flow, model, take_latents=True)(w)
+    w_back, jac_inv = make_folded_inverse(flow, model)(x)
+    keep = pt.kink_distance(flow, pt.fold_flow(model).detach().double(), w.double()) > 1e-5
+    assert float((w_back - w).abs().amax(1)[keep].max()) <= tol
+    assert float((jac * jac_inv - 1).abs()[keep].max()) <= 5 * tol
+
+
+@pytest.mark.cuda
+def test_event_generation_launches_the_sampler(cuda):
+    """integrate(method="qmc") launches the kernel once per replication and
+    generate_unweighted(method="auto") once per batch and once for the w_max
+    pilot, on a model on the card; nothing falls back to the plain version."""
+    from nf_tpu_torch import PWQuadManager
+    from nf_tpu_torch.training.unweight import generate_unweighted
+
+    def camel(x):
+        return (torch.exp(-((x[:, 0] - 0.75) ** 2 + (x[:, 1] - 0.75) ** 2) / 0.04)
+                + torch.exp(-((x[:, 0] - 0.25) ** 2 + (x[:, 1] - 0.25) ** 2) / 0.04))
+
+    NF = PWQuadManager(n_flow=2, seed=0, device=cuda)
+    NF.create_model(2, 4, [3] * 3)
+    launches = ps.LAUNCHES
+    sig, err = NF.integrate(camel, 4, 1 << 14, seed=3, method="qmc")
+    assert ps.LAUNCHES == launches + 4 and math.isfinite(sig) and err > 0
+    launches = ps.LAUNCHES
+    events, eff, _ = generate_unweighted(NF._flow, NF.best_model, camel,
+                                         torch.Generator(device=cuda).manual_seed(1),
+                                         n_events=2000, batch=1 << 14)
+    n_batches = round(events.shape[0] / eff) // (1 << 14)
+    assert ps.LAUNCHES == launches + 1 + n_batches
+    assert events.dtype == np.float32 and ((events >= 0) & (events <= 1)).all()

@@ -7,6 +7,7 @@ nf_tpu's forward on the latents the port drew.  A short camel-2D run checks
 the trainer end to end.
 """
 
+import collections
 import copy
 import math
 
@@ -222,7 +223,7 @@ def test_early_stop_runs_the_tail_integration():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": object()}, {"resume_from": "state.msgpack"}, {"select_best_by": "ess"},
+    {"mesh": object()}, {"resume_from": "state.msgpack"}, {"epochs_per_sync": 4},
     {"epochs_per_sync": "auto"}, {"logdir": "runs"}, {"run": object()},
 ])
 def test_unported_arguments_raise(manager, kwargs):
@@ -232,9 +233,75 @@ def test_unported_arguments_raise(manager, kwargs):
 
 
 def test_unported_endpoint_options_raise(manager):
-    with pytest.raises(NotImplementedError, match="method"):
-        manager.integrate(camel_t, 2, 100, method="qmc")
     with pytest.raises(NotImplementedError, match="mesh"):
         manager.integrate(camel_t, 2, 100, mesh=object())
     with pytest.raises(NotImplementedError, match="mesh"):
         manager.sample(10, mesh=object())
+
+
+def _nf_tpu_latents(key, n_flow, mb, n_mb, epochs, stats_every=None):
+    """The latents nf_tpu's per-epoch trainer draws from the manager key
+    ``key`` (manager.py:352-371, 469, 547), in the order the port draws
+    them: the initial estimate's ``n_flow`` batches of ``2 mb``, then per
+    epoch its minibatches and, when the stale trainer refreshes, the
+    refresh batch of ``mb``."""
+    out = []
+    key, sub = jax.random.split(key)
+    for k in jax.random.split(sub, n_flow):
+        out.append(jax.random.uniform(k, (2 * mb, n_flow), jnp.float64))
+    for i in range(epochs):
+        key, sub = jax.random.split(key)
+        out += [jax.random.uniform(k, (mb, n_flow), jnp.float64)
+                for k in jax.random.split(sub, n_mb)]
+        if stats_every and i % stats_every == 0:
+            out.append(jax.random.uniform(jax.random.fold_in(sub, 777), (mb, n_flow),
+                                          jnp.float64))
+    return collections.deque(np.array(a) for a in out)
+
+
+@pytest.mark.parametrize("bn_stats,seed", [("batch", 1), ("stale", 3)])
+def test_select_best_by_ess_matches_nf_tpu(bn_stats, seed):
+    """Both trainers with ``select_best_by="ess"`` on a short camel run,
+    from nf_tpu's initial weights and on nf_tpu's latents, snapshot the
+    epoch nf_tpu snapshots, with its ESS; the least loss falls on another
+    epoch, so the rule decides it.  nf_tpu's stale trainer runs its kernel
+    path (interpret mode), which the port follows; the stale maps run in
+    float32 on both sides."""
+    from nf_tpu import PWQuadManager as JPWQuadManager
+    kw = dict(log=False, batch_size=512, epochs=12, mini_batch_size=256, preburn_time=0,
+              kill_counter=100, pretty_progressbar=False, select_best_by="ess",
+              bn_stats=bn_stats, stats_every=3)
+    NFj = JPWQuadManager(n_flow=2, seed=seed, dtype=jnp.float64)
+    NFj.create_model(2, 4, [3] * 3)
+    NF = PWQuadManager(n_flow=2, seed=seed, dtype=torch.float64, device="cpu")
+    NF.create_model(2, 4, [3] * 3)
+    NF._model = interop.from_numpy(NF._flow, *jax.tree.map(np.asarray,
+                                                           (NFj._params, NFj._bn_state)))
+    NF.best_model = copy.deepcopy(NF._model)
+    latents = _nf_tpu_latents(NFj._key, 2, 256, 2, 12, 3 if bn_stats == "stale" else None)
+    NFj._train_variance_forward_seq(camel_j, joptim.adamax(1e-2, 1e-4), epochs_per_sync=1,
+                                    _force_train_kernel=bn_stats == "stale", **kw)
+
+    def uniform(shape):
+        w = latents.popleft()
+        assert w.shape == tuple(shape)
+        return torch.from_numpy(w)
+
+    NF._uniform = uniform
+    NF._train_variance_forward_seq(camel_t, toptim.adamax(1e-2, 1e-4), **kw)
+    assert not latents
+    rtol = 1e-9 if bn_stats == "batch" else 1e-5
+    np.testing.assert_allclose(NF.history, NFj.history, rtol=rtol)
+    assert NF.best_epoch == NFj.best_epoch
+    np.testing.assert_allclose(NF.best_ess, NFj.best_ess, rtol=rtol)
+    assert int(np.argmin(NF.history)) != NF.best_epoch
+    # the snapshot is the model after that epoch's step, compared by its
+    # train-mode map: Adamax moves the input BatchNorm's shift, which the
+    # batch statistics downstream cancel, by steps of either sign on a
+    # gradient that is zero up to rounding
+    w = np.random.RandomState(0).uniform(size=(512, 2))
+    x_j, jac_j, _ = jmodel.forward(NFj._flow, *NFj.best_params, jnp.asarray(w), True)
+    with torch.no_grad():
+        x_t, jac_t = NF.best_model.frozen_forward(torch.from_numpy(w), True)
+    np.testing.assert_allclose(x_t.numpy(), np.asarray(x_j), rtol=100 * rtol, atol=1e-12)
+    np.testing.assert_allclose(jac_t.numpy(), np.asarray(jac_j), rtol=100 * rtol)
