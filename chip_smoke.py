@@ -27,6 +27,14 @@ the sampler kernel; then the device Sobol on the card against the CPU, the
 kernel on Sobol latents against its plain version, the round trip through
 ``make_folded_inverse`` (camel and the 10-D flagship), the QMC integrals
 against the analytic value and the unweighted events' distribution.
+Phase 13 drives the phase space on the card: the 2 -> 4 double resonance of
+tools/run_2to4.py (decay-tree channel, Breit-Wigner and tau maps, ToyPDF,
+cuts) through the batch trainer, ``sample``, ``integrate``,
+``generate_unweighted`` and the stale trainer on an n_flow 10 / 32-bin /
+[32, 32] model; then the flat volume, the card against the CPU, the
+Drell-Yan cross section against its analytic value (importance-sampled MC
+and the trained flow), the kernels against their plain versions on the new
+plan, the 2 -> 4 flow integral against uniform MC, and timings.
 Prints one ``{"kernels": [...]}`` line;
 the last line of standard output is ``{"ok": true, "device": {...}}``; any
 failed check exits non-zero before it is printed.  Exits non-zero at once
@@ -146,11 +154,381 @@ def device_profile(tag, what, fn, card):
               if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
     dev_us = [e.self_device_time_total for e in events]
     total = sum(dev_us)
+    launches = sum(e.count for e in events)
     check(total > 0, f"{what} profile shows device time")
     print(f"{tag} {what} under the profiler: device {total / 1e3:.3f} ms of "
-          f"{wall * 1e3:.3f} ms wall (busy {total / 1e6 / wall:.1%}) {card}")
+          f"{wall * 1e3:.3f} ms wall (busy {total / 1e6 / wall:.1%}), {launches} device "
+          f"operations (kernels and copies) {card}")
     for us, e in sorted(zip(dev_us, events), key=lambda t: -t[0])[:6]:
         print(f"{tag}   {us / 1e3:.3f} ms ({us / total:.1%}) x{e.count} {e.key[:90]}")
+    return total / 1e3, launches
+
+
+# ---- phase 13: phase space on the card.  The 2 -> 4 double resonance of
+# tools/run_2to4.py (qq -> ZZ -> 4l at 2000 GeV, BASELINE configs[3]) and the
+# Drell-Yan 2 -> 2 of tests/test_physics_validation.py.
+MZ, GZ = 91.188, 2.4952
+MZ2, GAM2 = MZ ** 2, MZ ** 2 * GZ ** 2
+GEV2_TO_PB = 2.56819e-9
+E_ZZ = E_DY = 2000.0
+ZZ_CUTS = dict(pT_mincut=20.0, delR_mincut=0.4, rap_maxcut=2.4, pdgs=(2, -2))
+DY_SIGMA_PB = 3.6568        # the analytic sigma, tests/test_physics_validation.py:135-138
+ZZ_RECORD_PB = (3.8170, 0.0016)   # nf_tpu's record, tools/run_2to4.py:14-15 (no gate)
+PDF_FIXTURE = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data",
+                           "toypdf_0000.dat")
+# run_2to4.py's published configuration, cut only in its epoch counts
+ZZ_BATCH, ZZ_MINI = 1 << 20, 1 << 18
+ZZ_BATCH_EPOCHS, ZZ_STALE_EPOCHS = 5, 8
+# phase 13's sizes: the path's and the timings' batch, the kernel checks'
+# (sampler, training kernels), the uniform MC's, the Drell-Yan MC's chunk
+# (four of them), the card-against-CPU batch
+N_PS, N_SAMPLER, N_TRAIN, N_UNIFORM, N_DY, N_CPU = 1 << 20, 1 << 21, 1 << 18, 1 << 22, 1 << 19, 1 << 16
+
+
+def zz_integrand():
+    """``(channel, f)``: the decay-tree channel with both Z pairs
+    Breit-Wigner mapped, ToyPDF in tau mode and the cuts, the tau latent
+    power-mapped above the ZZ threshold (tools/run_2to4.py:93-109)."""
+    from functools import partial
+
+    from nf_tpu_torch.phasespace import lorentz
+    from nf_tpu_torch.phasespace.mappings import remap_integrand, shifted_power_unit_map
+    from nf_tpu_torch.phasespace.pdf import ToyPDF
+    from nf_tpu_torch.phasespace.topology import BreitWignerSMap, ResonanceDecayPhasespace
+
+    channel = ResonanceDecayPhasespace(
+        [0.0, 0.0], [0.0] * 4, ((0, 1), (2, 3)),
+        mass_maps={(0, 1): BreitWignerSMap(MZ, GZ), (2, 3): BreitWignerSMap(MZ, GZ)},
+        pdf=ToyPDF(), pdf_active=True, tau=True)
+
+    def base(w):
+        momenta, wgt = channel.generateKinematics_batch(E_ZZ, w, **ZZ_CUTS)
+        fin = momenta[:, 2:, :]
+        s34 = lorentz.square(fin[:, 0] + fin[:, 1])
+        s56 = lorentz.square(fin[:, 2] + fin[:, 3])
+        return 1e4 / ((s34 - MZ2) ** 2 + GAM2) * 1e4 / ((s56 - MZ2) ** 2 + GAM2) * wgt
+
+    tau_th = (2 * MZ / E_ZZ) ** 2
+    return channel, remap_integrand(base, channel.nDimPhaseSpace(), partial(
+        shifted_power_unit_map, exponent=-3.0, shift=3 * tau_th))
+
+
+def dy_integrand():
+    """The Drell-Yan integrand of tests/test_physics_validation.py:48-60."""
+    from nf_tpu_torch import FlatInvertiblePhasespace
+    from nf_tpu_torch.phasespace import lorentz
+    from nf_tpu_torch.phasespace.pdf import ToyPDF
+
+    gen = FlatInvertiblePhasespace([0.0, 0.0], [0.0, 0.0], pdf=ToyPDF(), pdf_active=True,
+                                   tau=True)
+
+    def integrand(w):
+        momenta, wgt = gen.generateKinematics_batch(E_DY, w, pT_mincut=10.0, rap_maxcut=2.4,
+                                                    pdgs=(2, -2))
+        shat = lorentz.square(momenta[:, 0, :] + momenta[:, 1, :])
+        return 1e4 / ((shat - MZ2) ** 2 + GAM2) * wgt
+
+    return integrand
+
+
+def phase13(dev, card, gen, hold_train, perturb_bn):
+    """Phase space on the card: the 2 -> 4 path through the entry points,
+    then checks 1-6.  Returns ``(launches, errors)``: the path's kernel
+    launches (sampler, forward, backward) and the largest errors against
+    the plain versions (sampler x, forward, backward)."""
+    import torch
+
+    from nf_tpu_torch import FlatInvertiblePhasespace, PWQuadManager
+    from nf_tpu_torch.flows import factory
+    from nf_tpu_torch.flows import sampling as fsampling
+    from nf_tpu_torch.flows.fast_eval import make_folded_forward
+    from nf_tpu_torch.ops import pwquad_sampler as ps
+    from nf_tpu_torch.ops import pwquad_train as pt
+    from nf_tpu_torch.phasespace.lhapdf_reader import LHAPDFGrid
+    from nf_tpu_torch.phasespace.mappings import shifted_power_unit_map
+    from nf_tpu_torch.phasespace.pdf import ToyPDF
+    from nf_tpu_torch.phasespace.topology import BreitWignerSMap
+    from nf_tpu_torch.training import optimizers
+    from nf_tpu_torch.training.unweight import generate_unweighted
+
+    def sync():
+        if dev.type == "cuda":
+            torch.cuda.synchronize()
+
+    def pb(v):
+        return v / GEV2_TO_PB
+
+    # ---- the 2 -> 4 path: the batch trainer, sample, integrate, unweighted
+    # events, then the stale trainer on the same model
+    channel, zz = zz_integrand()
+    n_flow = channel.nDimPhaseSpace() + 2
+    NF_z = PWQuadManager(n_flow=n_flow, seed=0, device=dev)
+    NF_z.create_model(4, 32, [32] * 2, identity_init=True)
+    train_kw = dict(log=False, batch_size=ZZ_BATCH, mini_batch_size=ZZ_MINI,
+                    pretty_progressbar=False, integrate=False, preburn_time=0, kill_counter=50,
+                    loss_mode="var", select_best_by="ess")
+    ps.LAUNCHES = pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = 0
+    sync()
+    t0 = time.perf_counter()
+    NF_z._train_variance_forward_seq(zz, optimizers.adamax(5e-4, 1e-4), epochs=ZZ_BATCH_EPOCHS,
+                                     **train_kw)
+    sync()
+    batch_s = time.perf_counter() - t0
+    batch_ran = NF_z._last_epoch + 1
+    batch_epoch = NF_z.benchmark_train_step(reps=3)
+    x_s, jac_s = NF_z.sample(N_PS)
+    sig, err = NF_z.integrate(zz, 8, N_PS, seed=11, combine="mean")
+    unw_batch = 1 << 18
+    ev, eff, n_over = generate_unweighted(NF_z._flow, NF_z.best_model, zz,
+                                          torch.Generator(device=dev).manual_seed(31),
+                                          n_events=4096, batch=unw_batch)
+    eventgen = ps.LAUNCHES
+    t0 = time.perf_counter()
+    NF_z._train_variance_forward_seq(zz, optimizers.adamax(5e-4, 1e-4), epochs=ZZ_STALE_EPOCHS,
+                                     bn_stats="stale", stats_every=4, **train_kw)
+    sync()
+    stale_s = time.perf_counter() - t0
+    launches = (ps.LAUNCHES, pt.FWD_LAUNCHES, pt.BWD_LAUNCHES)
+    stale_ran = NF_z._last_epoch + 1
+    n_mb = ZZ_BATCH // ZZ_MINI
+    print(f"phase13 zz: batch trainer {batch_ran} epochs in {batch_s:.2f} s (best epoch "
+          f"{NF_z.best_epoch} of the stale run below), sample(2^20), integrate(8, 2^20), "
+          f"{len(ev)} unweighted events (efficiency {eff:.5f}, overweight {n_over}), stale "
+          f"trainer {stale_ran} epochs in {stale_s:.2f} s; launches sampler {launches[0]} "
+          f"({eventgen} before the stale run) fwd {launches[1]} bwd {launches[2]}")
+    # one launch for sample, one per replication of integrate, one for the
+    # w_max estimate and one per proposal batch of the unweighting (its
+    # efficiency is accepted / proposed, in whole batches)
+    n_unw_batches = round(len(ev) / (eff * unw_batch))
+    check(launches[0] == eventgen == 1 + 8 + 1 + n_unw_batches,
+          f"zz sample/integrate/unweighting ({n_unw_batches} proposal batches) launched the "
+          f"sampler {eventgen} times")
+    check(launches[1:] == (stale_ran * n_mb + (stale_ran - 1) // 4 + 1, stale_ran * n_mb),
+          f"zz stale trainer launched fwd/bwd {launches[1:]}")
+    check(x_s.shape == (N_PS, n_flow) and bool(torch.isfinite(jac_s).all())
+          and bool(((x_s >= 0) & (x_s <= 1)).all()), "zz sample() output")
+    check(len(ev) >= 4096 and ev.shape[1] == n_flow and 0 < eff <= 1, "zz unweighted events")
+    errors = [0.0, 0.0, 0.0]
+
+    # check 1: the massless flat volume, every weight, in float32 and float64
+    for n_final in (2, 3, 4, 5):
+        gen_f = FlatInvertiblePhasespace([0.0, 0.0], [0.0] * n_final)
+        vol = gen_f.get_flatWeights(1000.0, n_final) / (2 * 1000.0 ** 2)
+        for dtype, tol in ((torch.float32, 1e-5), (torch.float64, 1e-12)):
+            rv = torch.rand((N_PS, gen_f.nDimPhaseSpace()), generator=gen, device=dev,
+                            dtype=dtype)
+            mom, w = gen_f.generateKinematics_batch(1000.0, rv)
+            # the generator zeroes events it cannot resolve (momenta and
+            # weight, ~1e-6 of float32 events: a mass latent at the edge)
+            sanitised = (mom == 0).flatten(1).all(1)
+            rel = (w / vol - 1).abs()
+            worst = float(rel[~sanitised].max())
+            n_san = int(sanitised.sum())
+            print(f"phase13 check 1 flat volume n_final={n_final} {str(dtype)[6:]} 2^20: "
+                  f"max |w / vol - 1| = {worst:.3e} over the {N_PS - n_san} events kept, "
+                  f"{n_san} sanitised")
+            check(worst <= tol, f"flat volume n_final={n_final} {dtype}")
+            check(n_san <= (16 if dtype == torch.float32 else 0),
+                  f"flat volume n_final={n_final} {dtype}: {n_san} events sanitised")
+            check(bool((w[sanitised] == 0).all()), "sanitised events weigh 0")
+
+    # check 2: the card against the CPU, float64, the same port code
+    n_c = N_CPU
+
+    def against_cpu(what, fn, rv, scales):
+        """``fn(rv)`` on the card and on the CPU: each output's largest
+        |difference| / (|cpu value| + its scale), and the events whose
+        weight (the last output) is zero on one side only."""
+        out_d, out_c = fn(rv), fn(rv.cpu())
+        worst = max(float(((a.cpu() - b).abs() / (b.abs() + scale)).max())
+                    for a, b, scale in zip(out_d, out_c, scales))
+        flips = int(((out_d[-1].cpu() == 0) != (out_c[-1] == 0)).sum())
+        print(f"phase13 check 2 {what} 2^16 float64: cuda against cpu max rel {worst:.3e}, "
+              f"cut decisions that differ {flips}")
+        check(worst <= 1e-9 and flips == 0, f"{what} cuda vs cpu")
+
+    flat_pdf = FlatInvertiblePhasespace([0.0, 0.0], [173.0, 4.7, 0.0, 80.4], pdf=ToyPDF(),
+                                        pdf_active=True, tau=True)
+    rv = torch.rand((n_c, 10), generator=gen, device=dev, dtype=torch.float64)
+    # the momenta against the collider energy (components cancel), the
+    # weights relative
+    against_cpu("flat massive 2->4, ToyPDF tau, cuts",
+                lambda r: flat_pdf.generateKinematics_batch(1000.0, r, **ZZ_CUTS), rv,
+                (1000.0, 1e-300))
+    against_cpu("zz channel, ToyPDF tau, cuts",
+                lambda r: channel.generateKinematics_batch(E_ZZ, r, **ZZ_CUTS), rv,
+                (E_ZZ, 1e-300))
+    grid = LHAPDFGrid.from_dat(PDF_FIXTURE)
+    xq = torch.stack([10 ** (6 * torch.rand(n_c, generator=gen, device=dev,
+                                            dtype=torch.float64) - 6.1),
+                      10 ** (10 * torch.rand(n_c, generator=gen, device=dev,
+                                             dtype=torch.float64) - 1)], 1)
+    for mode in ("continuation", "nearest"):
+        against_cpu(f"LHAPDFGrid {mode}, all flavors, in and out of range", lambda r: [
+            torch.stack([grid.xfxQ2(pdg, r[:, 0], r[:, 1], extrapolation=mode)
+                         for pdg in grid.flavors])], xq, (1e-12,))
+
+    # check 3: Drell-Yan against the analytic sigma
+    dy = dy_integrand()
+    s_dy = E_DY ** 2
+    tau_min, tau_star, w_tau = (1.0 / E_DY) ** 2, MZ2 / s_dy, math.sqrt(GAM2) / s_dy
+    lo, hi = math.atan((tau_min - tau_star) / w_tau), math.atan((1.0 - tau_star) / w_tau)
+    tot, tot2, n_tot = 0.0, 0.0, 0
+    for _ in range(4):
+        u = torch.rand((N_DY, 4), generator=gen, device=dev, dtype=torch.float64)
+        tau = tau_star + w_tau * torch.tan(lo + u[:, -2] * (hi - lo))
+        q_tau = 1.0 / ((hi - lo) * w_tau * (1.0 + ((tau - tau_star) / w_tau) ** 2))
+        w = u.clone()
+        w[:, -2] = (tau - tau_min) / (1.0 - tau_min)
+        iw = dy(w) / (q_tau * (1.0 - tau_min))
+        tot += float(iw.sum())
+        tot2 += float((iw ** 2).sum())
+        n_tot += u.shape[0]
+    est = tot / n_tot
+    est_err = math.sqrt(max(tot2 / n_tot - est ** 2, 0.0) / n_tot)
+    sigma = DY_SIGMA_PB * GEV2_TO_PB
+    print(f"phase13 check 3 Drell-Yan importance-sampled MC, 4 x 2^19 float64: "
+          f"{pb(est):.5f} +- {pb(est_err):.5f} pb (analytic {DY_SIGMA_PB} pb)")
+    check(abs(est - sigma) < max(6 * est_err, 0.01 * sigma), "Drell-Yan MC vs analytic sigma")
+    NF_d = PWQuadManager(n_flow=4, seed=0, device=dev)
+    NF_d.create_model(4, 32, [32] * 2)
+    t0 = time.perf_counter()
+    NF_d._train_variance_forward_seq(
+        dy, optimizers.adamax(2e-3, 1e-4), log=False, batch_size=16384, epochs=60,
+        pretty_progressbar=False, mini_batch_size=16384, integrate=False, preburn_time=0,
+        kill_counter=100, loss_mode="kl")
+    dy_s = time.perf_counter() - t0
+    ps.LAUNCHES = 0
+    sig_d, err_d = NF_d.integrate(dy, 8, 1 << 17, seed=11, combine="mean")
+    sync()
+    dy_launches = ps.LAUNCHES
+    print(f"phase13 check 3 Drell-Yan NIS: 60 kl epochs at batch 16384 in {dy_s:.2f} s, "
+          f"integrate(8, 2^17) through the sampler ({dy_launches} launches): "
+          f"{pb(sig_d):.5f} +- {pb(err_d):.5f} pb (analytic {DY_SIGMA_PB} pb)")
+    check(dy_launches == 8, f"Drell-Yan integrate launched the sampler {dy_launches} times")
+    check(err_d > 0 and abs(sig_d - sigma) < max(6 * err_d, 0.1 * sigma),
+          "Drell-Yan NIS vs analytic sigma")
+
+    # check 4: the kernels against their plain versions on the n_flow 10,
+    # 32-bin, [32, 32] plan: a model with random weights and BatchNorm
+    # statistics, then the trained one
+    model_r = perturb_bn(factory.build_pwquad_flow(gen, n_flow, 4, 32, (32, 32), device=dev))
+    flow = model_r.flow
+
+    def hold_sampler(what, x_k, jac_k, x_p, jac_p):
+        sync()
+        err_x = float((x_k - x_p).abs().max())
+        err_j = float(((jac_k - jac_p) / jac_p).abs().max())
+        errors[0] = max(errors[0], err_x)
+        print(f"phase13 check 4 {what}: max|dx|={err_x:.3e} max|djac/jac|={err_j:.3e}")
+        check(x_k.shape == x_p.shape and jac_k.shape == jac_p.shape, f"{what} shapes")
+        check(torch.allclose(x_k, x_p, rtol=1e-4, atol=2e-5), f"{what} x vs plain")
+        check(torch.allclose(jac_k, jac_p, rtol=1e-3, atol=0.0), f"{what} jac vs plain")
+
+    w = torch.rand((N_SAMPLER, n_flow), generator=gen, device=dev)
+    hold_sampler("sampler, random weights, identical latents 2^21",
+                 *ps.build_sampler(flow, model_r, take_latents=True)(w),
+                 *make_folded_forward(flow, model_r)(w))
+    x_k, jac_k = NF_z.sample(N_SAMPLER, seed=5)
+    seed = fsampling.seed_from(torch.Generator(device=dev).manual_seed(5))
+    w = torch.from_numpy(ps.philox_uniform(seed, 0, N_SAMPLER, n_flow)).to(dev)
+    hold_sampler("sampler, trained model, sample(2^21, seed=5)", x_k, jac_k,
+                 *make_folded_forward(NF_z._flow, NF_z.best_model)(w))
+    del w, x_k, jac_k
+    for what, model in (("random weights", model_r), ("trained stale", NF_z._model)):
+        e_f, e_b = hold_train(f"zz {what} n=2^18", pt.TrainPlan(model.flow),
+                              pt.fold_flow(model).detach(),
+                              torch.rand((N_TRAIN, n_flow), generator=gen, device=dev),
+                              tag="phase13 check 4")
+        errors[1], errors[2] = max(errors[1], e_f), max(errors[2], e_b)
+
+    # check 5: the flow's integral against uniform MC of the mapped channel
+    wf = zz(x_s) * jac_s
+    ess_flow = float(wf.mean() ** 2 / (wf ** 2).mean())
+    tot, tot2 = 0.0, 0.0
+    n_u = N_UNIFORM
+    for _ in range(4):
+        v = zz(torch.rand((n_u // 4, n_flow), generator=gen, device=dev, dtype=torch.float64))
+        tot += float(v.sum())
+        tot2 += float((v ** 2).sum())
+    sig_u = tot / n_u
+    err_u = math.sqrt(max(tot2 / n_u - sig_u ** 2, 0.0) / n_u)
+    ess_u = sig_u ** 2 / (tot2 / n_u)
+    print(f"phase13 check 5 zz: flow integrate(8, 2^20) = {pb(sig):.5f} +- {pb(err):.5f} pb, "
+          f"uniform MC of the mapped channel 2^22 float64 = {pb(sig_u):.5f} +- {pb(err_u):.5f} "
+          f"pb; ESS fraction flow {ess_flow:.5f}, uniform {ess_u:.5f} (nf_tpu's record "
+          f"{ZZ_RECORD_PB[0]} +- {ZZ_RECORD_PB[1]} pb, not a gate)")
+    check(math.isfinite(sig) and err > 0
+          and abs(sig - sig_u) <= 5 * math.hypot(err, err_u) + 0.01 * abs(sig_u),
+          "zz flow integral vs uniform MC of the mapped channel")
+
+    # check 6: timings, CUDA events, median of 11
+    bench_gen = FlatInvertiblePhasespace([0.0, 0.0], [173.0, 4.7, 0.0, 80.4])
+    ms = time_ms(lambda: bench_gen.generateKinematics_batch(
+        1000.0, torch.rand((N_PS, 8), generator=gen, device=dev), pT_mincut=20.0,
+        delR_mincut=0.4, rap_maxcut=2.4))
+    print(f"phase13 check 6 bench.py stage_phase_space (massive 2->4, 1000 GeV, cuts, 2^20 "
+          f"float32 with the draw): {ms:.3f} ms = {N_PS / ms * 1e3:.4e} events/s {card}")
+    w32 = torch.rand((N_PS, n_flow), generator=gen, device=dev)
+    u32 = w32[:, 0].contiguous()
+    s_lo = torch.zeros_like(u32)
+    s_hi = torch.full_like(u32, E_ZZ ** 2)
+    x32 = 10 ** (5 * u32 - 5)
+    grid_pdf = LHAPDFGrid.from_dat(PDF_FIXTURE)
+    layers = (
+        ("zz integrand (channel map, generator, PDF, cuts, ME)", lambda: zz(w32)),
+        ("zz channel generateKinematics_batch with cuts",
+         lambda: channel.generateKinematics_batch(E_ZZ, w32, **ZZ_CUTS)),
+        ("bench flat generator with cuts", lambda: bench_gen.generateKinematics_batch(
+            1000.0, w32[:, :8], pT_mincut=20.0, delR_mincut=0.4, rap_maxcut=2.4)),
+        ("ToyPDF xfxQ2", lambda: ToyPDF().xfxQ2(2, x32, MZ2)),
+        ("LHAPDFGrid xfxQ2 continuation", lambda: grid_pdf.xfxQ2(2, x32, MZ2)),
+        ("shifted_power_unit_map (tau)", lambda: shifted_power_unit_map(u32, -3.0, 0.025)),
+        ("BreitWignerSMap.sample", lambda: BreitWignerSMap(MZ, GZ).sample(u32, s_lo, s_hi)),
+    )
+    for what, fn in layers:
+        ms = time_ms(fn)
+        dev_ms, n_ops = device_profile("phase13", f"{what}, 2^20 float32", fn, card)
+        print(f"phase13 check 6 {what}: {ms:.4f} ms per 2^20 (CUDA events), {n_ops} device "
+              f"operations, {dev_ms:.4f} ms of device time {card}")
+    # the three kernels on this plan (random weights), beside their plain
+    # versions and their bounds
+    plan = pt.TrainPlan(flow)
+    flat = pt.fold_flow(model_r).detach()
+    plan.descriptor(dev)
+    seeded = ps.build_sampler(flow, model_r, layout="dim_major")
+    plain = make_folded_forward(flow, model_r)
+    w = torch.rand((N_SAMPLER, n_flow), generator=gen, device=dev)
+    w_t = torch.rand((N_TRAIN, n_flow), generator=gen, device=dev)
+    xbar = 0.3 * torch.randn((N_TRAIN, n_flow), generator=gen, device=dev)
+    jbar = torch.randn(N_TRAIN, generator=gen, device=dev)
+    _, jac, stage = pt.train_forward(plan, flat, w_t)
+    flat_g, w_g = flat.clone().requires_grad_(True), w_t.clone().requires_grad_(True)
+    outs = pt.folded_forward_ref(flow, flat_g, w_g)
+    kernel_t = {
+        "sampler": (N_SAMPLER, time_ms(lambda: seeded(7, N_SAMPLER)), time_ms(lambda: plain(w))),
+        "fwd": (N_TRAIN, time_ms(lambda: pt.train_forward(plan, flat, w_t)),
+                time_ms(lambda: pt.folded_forward_ref(flow, flat, w_t))),
+        "bwd": (N_TRAIN, time_ms(lambda: pt.train_backward(plan, flat, stage, jac, jbar, xbar,
+                                                           latents=w_t)),
+                time_ms(lambda: torch.autograd.grad(outs, (flat_g, w_g), (xbar, jbar),
+                                                    retain_graph=True))),
+    }
+    del outs
+    print(f"phase13 check 6 zz plan launches (block, weights in shared memory): sampler "
+          f"{ps.SamplerPlan(flow).config}, forward {plan.fwd_config[False]}, backward "
+          f"{plan.bwd_config}")
+    for kernel, (n_k, ms, plain_ms) in kernel_t.items():
+        flops, nbytes = kernel_work(pt, flow, kernel, n_k)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        print(f"phase13 check 6 zz plan {kernel} n={n_k}: {ms:.4f} ms (plain {plain_ms:.4f} ms), "
+              f"bound {b_ms:.5f} ms by {b_by} ({flops / n_k:.0f} FLOP and {nbytes / n_k:.1f} B "
+              f"per sample), {b_ms / ms:.2%} of the bound {card}")
+    stale_epoch = NF_z.benchmark_train_step(reps=3)
+    for what, (sec, sps) in (("batch", batch_epoch), ("stale", stale_epoch)):
+        print(f"phase13 check 6 zz {what} trainer, batch 2^20 in 4 x 2^18: "
+              f"benchmark_train_step {sec * 1e3:.3f} ms/epoch = {sps:.4e} samples/s {card}")
+    return launches, errors
 
 
 def main():
@@ -429,7 +807,7 @@ def main():
             err_b = max(err_b, float((a.double() - b).abs().max()))
         return worst, worst32, err_b, dflat_k, wbar_k
 
-    def hold_train(what, plan, flat, w):
+    def hold_train(what, plan, flat, w, tag="phase7"):
         """Forward (with stats) and backward kernels against their plain
         versions on the same inputs, the whole batch in one launch; two more
         launches must repeat them bit for bit.  The backward's reference is
@@ -460,7 +838,7 @@ def main():
         xbar, jbar = xbar * keep[:, None], jbar * keep
         worst, worst32, err_b, dflat_k, wbar_k = backward_gate(plan, flat, w, stage_k, jac_k,
                                                                xbar, jbar)
-        print(f"phase7 {what}: max|dx|={err_x:.3e} max|djac/jac|={err_j:.3e} "
+        print(f"{tag} {what}: max|dx|={err_x:.3e} max|djac/jac|={err_j:.3e} "
               f"stats {err_s:.3e}; backward max|d|={err_b:.3e}, "
               f"worst |d|/bound {worst:.3e} (plain32 {worst32:.3e}) with the "
               f"{n - int(keep.sum())} samples within {KINK:g} of a kink masked; "
@@ -795,6 +1173,10 @@ def main():
     check(len(ev_p) >= 1 << 20 and bool(((ev_p >= 0) & (ev_p <= 1)).all()),
           "plain events in [0, 1]^2")
 
+    # ---- phase 13: phase space on the card (the 2 -> 4 path, checks 1-6)
+    zz_launches, zz_err = phase13(dev, card, gen, hold_train, perturb_bn)
+    max_abs_err = max(max_abs_err, zz_err[0])
+
     camel_t = timings["camel2d_trained"]
     camel_tt = train_t["camel2d_trained"]
     src = "nf_tpu_torch/ops/csrc/pwquad_train.cu"
@@ -803,7 +1185,7 @@ def main():
         "route": "cuda",
         "source": "nf_tpu_torch/ops/csrc/pwquad_sampler.cu",
         "replaces": "nf_tpu/ops/pwquad_sampler.py:286",
-        "launches": launches + eventgen_launches,
+        "launches": launches + eventgen_launches + zz_launches[0],
         "max_abs_err": max_abs_err,
         "ms": camel_t["kernel_seeded_ms"],
         "plain_ms": camel_t["plain_rand_plus_folded_ms"],
@@ -815,8 +1197,8 @@ def main():
         "route": "cuda",
         "source": src,
         "replaces": "nf_tpu/ops/pwquad_train.py:608",
-        "launches": train_launches[0],
-        "max_abs_err": train_err[0],
+        "launches": train_launches[0] + zz_launches[1],
+        "max_abs_err": max(train_err[0], zz_err[1]),
         "ms": camel_tt["fwd_kernel_ms"],
         "plain_ms": camel_tt["fwd_plain_ms"],
         "bound_ms": bounds["camel2d_trained", "fwd"][0],
@@ -827,8 +1209,8 @@ def main():
         "route": "cuda",
         "source": src,
         "replaces": "nf_tpu/ops/pwquad_train.py:681",
-        "launches": train_launches[1],
-        "max_abs_err": train_err[1],
+        "launches": train_launches[1] + zz_launches[2],
+        "max_abs_err": max(train_err[1], zz_err[2]),
         "ms": camel_tt["bwd_kernel_ms"],
         "plain_ms": camel_tt["bwd_plain_ms"],
         "bound_ms": bounds["camel2d_trained", "bwd"][0],

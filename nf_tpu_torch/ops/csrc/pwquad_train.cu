@@ -64,11 +64,12 @@
 // wrapper picks the block size (128 to 512 samples, 64 or 32 where none of
 // those fits) and whether the weights sit in shared memory or are read
 // through L1 per plan, to keep the most threads resident with at least two
-// blocks per SM (the 10-D flagship: two blocks of 512 with the weights
-// through L1; camel: blocks of 512 with the weights in shared memory).  The
-// dW accumulator holds every weight of the plan in shared memory, which
-// caps the backward's plans at about 56k weights.  The forward: the
-// shared-memory pipe and latency.  It keeps no per-thread array: every activation, logit
+// blocks per SM (the 10-D flagship: blocks of 256 with the weights through
+// L1; camel: blocks of 512 with the weights in shared memory).  The
+// dW accumulator is the block's own row of the partial-gradient scratch in
+// device memory, so it takes no shared memory and caps no plan's width
+// (held in shared memory it refused plans beyond about 56k weights).  The
+// forward: the shared-memory pipe and latency.  It keeps no per-thread array: every activation, logit
 // and state value is a conflict-free shared-memory access to the thread's
 // own column (a warp's 32 columns are consecutive).  Each thread computes a
 // layer's outputs four at a time, so one activation load feeds four FMAs,
@@ -722,8 +723,9 @@ train_bwd_kernel(const int* __restrict__ desc, int desc_len,
                  float* __restrict__ grad_partial, float* __restrict__ wbar, long long n,
                  int n_ops, int h_rows, int g_rows) {
   extern __shared__ double smem_d[];
-  float* acc = reinterpret_cast<float*>(smem_d);  // [n_weights]
-  float* W_s = acc + n_weights;                   // [n_weights] with W_SMEM
+  // the dW accumulator [n_weights]: the block's own row of grad_partial
+  float* acc = grad_partial + (long long)blockIdx.x * n_weights;
+  float* W_s = reinterpret_cast<float*>(smem_d);  // [n_weights] with W_SMEM
   const float* __restrict__ W = W_SMEM ? W_s : weights;
   int* D = reinterpret_cast<int*>(W_s + (W_SMEM ? n_weights : 0));
   int* op_pos = D + desc_len;     // [n_ops]: where each op starts
@@ -788,9 +790,6 @@ train_bwd_kernel(const int* __restrict__ desc, int desc_len,
       for (int d = 0; d < n_flow; ++d) wbar[i * n_flow + d] = xbar[d];
     }
   }
-  __syncthreads();
-  for (int r = threadIdx.x; r < n_weights; r += blockDim.x)
-    grad_partial[(long long)blockIdx.x * n_weights + r] = acc[r];
 }
 
 // Backward through the cell whose descriptor starts at D[p]: xin is the
@@ -906,8 +905,9 @@ train_bwd_ws_kernel(const int* __restrict__ desc, int desc_len,
                  int n_ops, int h_rows, int g_rows, float* __restrict__ ws, int ws_acts,
                  int ws_hidden, int ws_width, int ws_bins) {
   extern __shared__ double smem_d[];
-  float* acc = reinterpret_cast<float*>(smem_d);  // [n_weights]
-  float* W_s = acc + n_weights;                   // [n_weights] with W_SMEM
+  // the dW accumulator [n_weights]: the block's own row of grad_partial
+  float* acc = grad_partial + (long long)blockIdx.x * n_weights;
+  float* W_s = reinterpret_cast<float*>(smem_d);  // [n_weights] with W_SMEM
   const float* __restrict__ W = W_SMEM ? W_s : weights;
   int* D = reinterpret_cast<int*>(W_s + (W_SMEM ? n_weights : 0));
   int* op_pos = D + desc_len;     // [n_ops]: where each op starts
@@ -983,9 +983,6 @@ train_bwd_ws_kernel(const int* __restrict__ desc, int desc_len,
       for (int d = 0; d < n_flow; ++d) wbar[i * n_flow + d] = xbar[d];
     }
   }
-  __syncthreads();
-  for (int r = threadIdx.x; r < n_weights; r += blockDim.x)
-    grad_partial[(long long)blockIdx.x * n_weights + r] = acc[r];
 }
 
 static int set_smem(const void* kernel, size_t smem) {
@@ -1106,7 +1103,7 @@ int nf_pwquad_train_bwd(const int* desc, int desc_len, const float* weights,
                         int n_ops, int h_rows, int g_rows, long long smem, float* ws,
                         long long ws_len, int n_flow, const int* ws_sizes, void* stream) {
   if (n <= 0) return 0;
-  const size_t need = sizeof(float) * ((w_smem ? 2 : 1) * (size_t)n_weights
+  const size_t need = sizeof(float) * ((w_smem ? (size_t)n_weights : 0)
                                        + (size_t)desc_len + (size_t)n_ops + 1
                                        + (size_t)(h_rows + g_rows) * (block + 1)
                                        + 4 * (size_t)block);

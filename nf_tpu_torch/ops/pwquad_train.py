@@ -337,15 +337,16 @@ def train_bwd_tiles(plan):
 
 
 def train_bwd_smem_bytes(plan, block, w_smem=True):
-    """Shared memory of one backward block of ``block`` threads: the
-    weight-gradient accumulator and, with ``w_smem``, the weights
-    (``n_weights`` floats each), the descriptor with each op's position and
-    the cell count, the H and G tiles (a row of ``block + 1`` floats per
-    feature) and the block product's partial sums (4 per thread).
-    ``nf_pwquad_train_bwd`` refuses a launch whose count differs from its
-    own."""
+    """Shared memory of one backward block of ``block`` threads: with
+    ``w_smem`` the weights (``n_weights`` floats), the descriptor with each
+    op's position and the cell count, the H and G tiles (a row of
+    ``block + 1`` floats per feature) and the block product's partial sums
+    (4 per thread).  The weight-gradient accumulator is the block's own row
+    of the partial-gradient scratch in device memory, so the plan's width
+    takes no shared memory beyond the weights.  ``nf_pwquad_train_bwd``
+    refuses a launch whose count differs from its own."""
     h_rows, g_rows = train_bwd_tiles(plan)
-    return 4 * ((2 if w_smem else 1) * plan.n_weights + plan.desc_len
+    return 4 * ((plan.n_weights if w_smem else 0) + plan.desc_len
                 + len(plan.flow.ops) + 1 + (h_rows + g_rows) * (block + 1) + 4 * block)
 
 

@@ -7,9 +7,10 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
         nvcc -Xptxas -v on every csrc/*.cu of the tree: registers, stack, spills per kernel
     python3 nf_tpu_torch/tools/kernel_timing.py time [--tree DIR]
         kernel and trainer timings of the nf_tpu_torch found in DIR (default:
-        this checkout), the training wrappers' host time per call, and a
-        digest of the training kernels' outputs (equal digests: the same
-        bits), one JSON line
+        this checkout) on camel-2D, the 10-D flagship and create_model(2, 4,
+        [128, 128]) (the workspace backward), the training wrappers' host
+        time per call, and a digest of the training kernels' outputs (equal
+        digests: the same bits), one JSON line
     python3 nf_tpu_torch/tools/kernel_timing.py pair DIR_A DIR_B DIR_B DIR_A
         ``time`` for each tree in turn, each in its own process (each builds
         its own kernel library), on the same card; one JSON line per tree
@@ -132,6 +133,20 @@ def ptxas(tree):
     return 0
 
 
+def _perturb(torch, model, gen, dev):
+    """Move ``model``'s BatchNorm statistics and scales off their init
+    values, so the fold is not trivial."""
+    with torch.no_grad():
+        for key, t in list(model.named_buffers()) + list(model.named_parameters()):
+            if key.endswith("mean"):
+                t.copy_(0.3 * torch.randn(t.shape, generator=gen, device=dev))
+            elif key.endswith("var"):
+                t.copy_(0.5 + 1.5 * torch.rand(t.shape, generator=gen, device=dev))
+            elif key.endswith("scale"):
+                t.copy_(1.0 + 0.3 * torch.randn(t.shape, generator=gen, device=dev))
+    return model
+
+
 def _models(torch, dev):
     """The camel-2D model and the 10-D rank-4 flagship, random, with their
     BatchNorm statistics and scales moved off their init values."""
@@ -141,15 +156,8 @@ def _models(torch, dev):
     models = {"camel2d": factory.build_pwquad_flow(gen, 2, 2, 4, (3, 3, 3), device=dev),
               "flagship10d_rank4": factory.build_pwquad_flow(gen, 10, 8, 8, (16, 16), device=dev,
                                                              final_rank=4)}
-    with torch.no_grad():
-        for model in models.values():
-            for key, t in list(model.named_buffers()) + list(model.named_parameters()):
-                if key.endswith("mean"):
-                    t.copy_(0.3 * torch.randn(t.shape, generator=gen, device=dev))
-                elif key.endswith("var"):
-                    t.copy_(0.5 + 1.5 * torch.rand(t.shape, generator=gen, device=dev))
-                elif key.endswith("scale"):
-                    t.copy_(1.0 + 0.3 * torch.randn(t.shape, generator=gen, device=dev))
+    for model in models.values():
+        _perturb(torch, model, gen, dev)
     return models, gen
 
 
@@ -163,11 +171,19 @@ def time_tree(tree):
     from nf_tpu_torch.ops import pwquad_train as pt
     from nf_tpu_torch.training import optimizers
 
+    from nf_tpu_torch.flows import factory
+
     dev = torch.device("cuda")
     torch.backends.cuda.matmul.allow_tf32 = False
     models, gen = _models(torch, dev)
+    # the workspace backward's plan, create_model(2, 4, [128, 128]), from a
+    # generator of its own: the other models' inputs stay as they were
+    wide_gen = torch.Generator(device=dev).manual_seed(4321)
+    models["wide128"] = _perturb(torch, factory.build_pwquad_flow(
+        wide_gen, 2, 2, 4, (128, 128), device=dev), wide_gen, dev)
     out = {"tree": tree, "package": os.path.dirname(nf_tpu_torch.__file__), "card": card()}
-    for name, n_train in (("camel2d", 1 << 20), ("flagship10d_rank4", 1 << 18)):
+    for name, n_train in (("camel2d", 1 << 20), ("flagship10d_rank4", 1 << 18),
+                          ("wide128", 1 << 18)):
         model = models[name]
         flow = model.flow
         plan = pt.TrainPlan(flow)

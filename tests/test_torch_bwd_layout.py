@@ -90,17 +90,17 @@ def test_bwd_tiles_hold_every_layer(name):
 
 def test_bwd_smem_count_flagship():
     """The flagship's count spelled out: 6,888 folded weights, a 386-int
-    descriptor, 24 ops, 17-row tiles; three blocks of 128 per SM with the
-    weights in shared memory (per-warp dW slices of all weights would take
-    139,304 B: one block), and the chosen launch keeps at least two blocks
-    per SM."""
+    descriptor, 24 ops, 17-row tiles, the dW accumulator in device memory;
+    four blocks of 128 per SM with the weights in shared memory (per-warp dW
+    slices of all weights would take 139,304 B: one block), and the chosen
+    launch keeps at least two blocks per SM."""
     plan = _plan("flagship10d_rank4")
     assert (plan.n_weights, plan.desc_len, len(plan.flow.ops)) == (6888, 386, 24)
     assert pt.train_bwd_tiles(plan) == (17, 17)
-    assert pt.train_bwd_smem_bytes(plan, 128) == 4 * (2 * 6888 + 386 + 25 + 34 * 129 + 4 * 128)
+    assert pt.train_bwd_smem_bytes(plan, 128) == 4 * (6888 + 386 + 25 + 34 * 129 + 4 * 128)
     assert pt.train_bwd_smem_bytes(plan, 512, False) == \
-        4 * (6888 + 386 + 25 + 34 * 513 + 4 * 512)
-    assert pt.blocks_per_sm(pt.train_bwd_smem_bytes(plan, 128), 128) == 3
+        4 * (386 + 25 + 34 * 513 + 4 * 512)
+    assert pt.blocks_per_sm(pt.train_bwd_smem_bytes(plan, 128), 128) == 4
     assert pt.blocks_per_sm(4 * (5 * 6888 + 386), 128) == 1
     block, w_smem = pt.train_bwd_config(plan)
     assert pt.blocks_per_sm(pt.train_bwd_smem_bytes(plan, block, w_smem), block) >= 2
@@ -119,10 +119,11 @@ def test_blocks_per_sm(smem, block, expected):
 
 def test_bwd_config_prefers_two_blocks_then_residents():
     """camel: every block size keeps 2048 threads resident with the weights
-    in shared memory, so the largest block; the flagship: 512 threads with
-    the weights through L1 keep 1024 resident in two blocks."""
+    in shared memory, so the largest block; the flagship: 256 threads with
+    the weights through L1 keep 1280 resident in five blocks (by shared
+    memory and threads; its 64 registers a thread hold four)."""
     assert pt.train_bwd_config(_plan("camel")) == (512, True)
-    assert pt.train_bwd_config(_plan("flagship10d_rank4")) == (512, False)
+    assert pt.train_bwd_config(_plan("flagship10d_rank4")) == (256, False)
     block, w_smem = pt.train_bwd_config(_plan("max_hidden_rank"))
     smem = pt.train_bwd_smem_bytes(_plan("max_hidden_rank"), block, w_smem)
     assert pt.blocks_per_sm(smem, block) >= 2

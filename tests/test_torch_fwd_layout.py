@@ -170,7 +170,7 @@ def test_fwd_config_choices():
     assert pt.train_fwd_config(_plan("flagship10d_rank4")) == (256, True)
     assert pt.train_fwd_config(_plan("flagship10d_rank4"), True) == (256, True)
     # the backward keeps its own order: the most resident threads first
-    assert pt.train_bwd_config(_plan("flagship10d_rank4")) == (512, False)
+    assert pt.train_bwd_config(_plan("flagship10d_rank4")) == (256, False)
 
 
 @pytest.mark.parametrize("n,block,expected", [
