@@ -35,6 +35,14 @@ cuts) through the batch trainer, ``sample``, ``integrate``,
 Drell-Yan cross section against its analytic value (importance-sampled MC
 and the trained flow), the kernels against their plain versions on the new
 plan, the 2 -> 4 flow integral against uniform MC, and timings.
+Phase 14 drives the ZZ/Z' multi-channel path of examples/zz_multichannel.py:
+a shared n_flow 11 rank-4 flow on the fixed-alpha two-channel integrand
+through both trainers, ``sample`` and ``integrate`` (the three kernels held
+against their plain versions on that plan), then the learned mixture
+(``training.multichannel``: per-channel flows, their trainer with
+checkpoints and a resume, stratified sampling, unweighting with global and
+per-channel maxima, partial unweighting written to an LHE file and read
+back), both integrals against uniform MC of the fixed-alpha integrand.
 Prints one ``{"kernels": [...]}`` line;
 the last line of standard output is ``{"ok": true, "device": {...}}``; any
 failed check exits non-zero before it is printed.  Exits non-zero at once
@@ -48,6 +56,7 @@ import statistics
 import subprocess
 import sys
 import time
+import warnings
 
 
 def check(cond, what):
@@ -147,20 +156,25 @@ def device_profile(tag, what, fn, card):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    # the device's own records (kernels, copies): an operator's device time,
-    # and an annotated range's span on the device (the optimizer step's),
-    # repeat those of the kernels inside them
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and not e.is_user_annotation]
-    dev_us = [e.self_device_time_total for e in events]
-    total = sum(dev_us)
-    launches = sum(e.count for e in events)
+    # the device's own records (kernels, copies, memsets), summed by name
+    # from the tracer's raw events: key_averages() builds a Python object
+    # per event (minutes on a training chunk) and has shown fewer device
+    # operations than the trace holds (none at all for one call of two
+    # small kernels).  An annotated range's span on the device (the
+    # optimizer step's) is left out: it repeats the kernels inside it
+    rows = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+            us, n = rows.get(e.name(), (0.0, 0))
+            rows[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    total = sum(us for us, _ in rows.values())
+    launches = sum(n for _, n in rows.values())
     check(total > 0, f"{what} profile shows device time")
     print(f"{tag} {what} under the profiler: device {total / 1e3:.3f} ms of "
           f"{wall * 1e3:.3f} ms wall (busy {total / 1e6 / wall:.1%}), {launches} device "
           f"operations (kernels and copies) {card}")
-    for us, e in sorted(zip(dev_us, events), key=lambda t: -t[0])[:6]:
-        print(f"{tag}   {us / 1e3:.3f} ms ({us / total:.1%}) x{e.count} {e.key[:90]}")
+    for name, (us, n) in sorted(rows.items(), key=lambda r: -r[1][0])[:6]:
+        print(f"{tag}   {us / 1e3:.3f} ms ({us / total:.1%}) x{n} {name[:90]}")
     return total / 1e3, launches
 
 
@@ -528,6 +542,402 @@ def phase13(dev, card, gen, hold_train, perturb_bn):
     for what, (sec, sps) in (("batch", batch_epoch), ("stale", stale_epoch)):
         print(f"phase13 check 6 zz {what} trainer, batch 2^20 in 4 x 2^18: "
               f"benchmark_train_step {sec * 1e3:.3f} ms/epoch = {sps:.4e} samples/s {card}")
+    return launches, errors
+
+
+# ---- phase 14: the ZZ/Z' multi-channel path of examples/zz_multichannel.py:
+# same-flavour 4 leptons at 2000 GeV with a Z pair in (01)(23) and a Z' pair
+# in (03)(12), two decay-tree channels with Breit-Wigner maps, ToyPDF, cuts
+MZP, GZP = 250.0, 12.0
+E_MC = 2000.0
+# the shared flow: create_model(4, 16, [32, 32], identity_init=True,
+# final_rank=4) on n_flow 11 at the example's production batch, one
+# minibatch, epochs cut from 300
+MC_BATCH, MC_BATCH_EPOCHS, MC_STALE_EPOCHS = 1 << 20, 5, 4
+# the learned mixture at the example's production sizes, epochs cut from
+# 300; the resume check at tools/tune_multichannel.py's 2^17 per channel
+MC_PER_CHANNEL, MC_MB, MC_EPOCHS, MC_EPOCHS_PER_CALL = 1 << 19, 1 << 16, 12, 4
+MC_RESUME_PER_CHANNEL, MC_RESUME_EPOCHS = 1 << 17, 4
+# global-max unweighting (0.3% efficient) draws fewer events than the others
+MC_EVENTS, MC_EVENTS_GLOBAL, MC_UNW_BATCH = 20_000, 5_000, 1 << 15
+# phase 14's other sizes: the sampler check's, the training kernels', the
+# uniform MC's (N_MC_UNIFORM x 8), the stratified sample's per channel
+N_MC_SAMPLER, N_MC_TRAIN, N_MC_UNIFORM, N_MC_SAMPLE = 1 << 20, 1 << 18, 1 << 20, 1 << 19
+
+
+def mc_physics():
+    """``(channels, matrix_element)`` of examples/zz_multichannel.py:47-90."""
+    from nf_tpu_torch.phasespace import lorentz
+    from nf_tpu_torch.phasespace.pdf import ToyPDF
+    from nf_tpu_torch.phasespace.topology import BreitWignerSMap, ResonanceDecayPhasespace
+
+    def bw(s, m, g):
+        return 1e4 / ((s - m * m) ** 2 + (m * g) ** 2)
+
+    def matrix_element(momenta):
+        f = momenta[:, 2:, :]
+
+        def s(i, j):
+            return lorentz.square(f[:, i] + f[:, j])
+
+        return (bw(s(0, 1), MZ, GZ) * bw(s(2, 3), MZ, GZ)
+                + 5e3 * bw(s(0, 3), MZP, GZP) * bw(s(1, 2), MZP, GZP))
+
+    common = dict(pdf=ToyPDF(), pdf_active=True, tau=True)
+    channels = [ResonanceDecayPhasespace([0.0, 0.0], [0.0] * 4, pairs,
+                                         mass_maps={p: BreitWignerSMap(m, g) for p in pairs},
+                                         **common)
+                for pairs, m, g in ((((0, 1), (2, 3)), MZ, GZ), (((0, 3), (1, 2)), MZP, GZP))]
+    return channels, matrix_element
+
+
+def phase14(dev, card, gen, hold_train, perturb_bn):
+    """The ZZ/Z' multi-channel path: the shared flow on the fixed-alpha
+    integrand through the kernels, then the learned mixture (per-channel
+    flows, their trainer, stratified sampling, multi-channel unweighting,
+    checkpoints and LHE output).  Returns ``(launches, errors)`` as
+    :func:`phase13` does."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nf_tpu_torch import PWQuadManager
+    from nf_tpu_torch.flows import factory
+    from nf_tpu_torch.flows.fast_eval import make_folded_forward
+    from nf_tpu_torch.ops import pwquad_sampler as ps
+    from nf_tpu_torch.ops import pwquad_train as pt
+    from nf_tpu_torch.phasespace import lorentz
+    from nf_tpu_torch.phasespace.topology import multichannel_integrand, optimize_alphas
+    from nf_tpu_torch.training import multichannel as mc
+    from nf_tpu_torch.training import optimizers
+    from nf_tpu_torch.utils.lhe import read_lhe, write_lhe
+
+    def pb(v):
+        return v / GEV2_TO_PB
+
+    channels, me = mc_physics()
+    cuts = ZZ_CUTS
+    alphas, a_hist = optimize_alphas(me, channels, [0.5, 0.5], E_MC,
+                                     torch.Generator(device=dev).manual_seed(1), n_iter=4,
+                                     n_samples=1 << 15, **cuts)
+    g = multichannel_integrand(me, channels, alphas, E_MC, **cuts)
+    n_flow = 1 + channels[0].nDimPhaseSpace() + 2
+    print(f"phase14 Kleiss-Pittau alphas {np.round(alphas, 4).tolist()} (variance "
+          f"{a_hist[0]['variance']:.3e} -> {a_hist[-1]['variance']:.3e})")
+
+    # ---- first half: the shared flow through the kernels
+    NF = PWQuadManager(n_flow=n_flow, seed=0, device=dev)
+    NF.create_model(4, 16, [32] * 2, identity_init=True, final_rank=4)
+    train_kw = dict(log=False, batch_size=MC_BATCH, mini_batch_size=MC_BATCH,
+                    pretty_progressbar=False, integrate=False, preburn_time=0, kill_counter=50,
+                    loss_mode="kl", select_best_by="ess")
+    ps.LAUNCHES = pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    NF._train_variance_forward_seq(g, optimizers.adamax(2e-3, 1e-4), epochs=MC_BATCH_EPOCHS,
+                                   **train_kw)
+    torch.cuda.synchronize()
+    batch_s = time.perf_counter() - t0
+    batch_ran = NF._last_epoch + 1
+    t0 = time.perf_counter()
+    NF._train_variance_forward_seq(g, optimizers.adamax(2e-3, 1e-4), epochs=MC_STALE_EPOCHS,
+                                   bn_stats="stale", stats_every=4, **train_kw)
+    torch.cuda.synchronize()
+    stale_s = time.perf_counter() - t0
+    stale_ran = NF._last_epoch + 1
+    x_s, jac_s = NF.sample(1 << 17, seed=5)
+    sig, err = NF.integrate(g, 8, 1 << 17, seed=11, combine="mean")
+    torch.cuda.synchronize()
+    launches = (ps.LAUNCHES, pt.FWD_LAUNCHES, pt.BWD_LAUNCHES)
+    wf = g(x_s) * jac_s
+    ess_flow = float(wf.mean() ** 2 / (wf ** 2).mean())
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase14 shared flow (n_flow {n_flow}, {len(NF._flow.cells)} cells, rank 4): "
+          f"{batch_ran} batch epochs in {batch_s:.2f} s ({batch_s / batch_ran * 1e3:.1f} "
+          f"ms/epoch), "
+          f"{stale_ran} stale epochs in {stale_s:.2f} s ({stale_s / stale_ran * 1e3:.1f} "
+          f"ms/epoch), batch 2^20 in one minibatch, host clock; sample(2^17) ESS {ess_flow:.5f}; "
+          f"integrate(8, 2^17) = {pb(sig):.5f} +- {pb(err):.5f} pb; launches sampler "
+          f"{launches[0]} fwd {launches[1]} bwd {launches[2]}; peak memory {peak:.2f} GiB {card}")
+    check(launches == (1 + 8, stale_ran + (stale_ran - 1) // 4 + 1, stale_ran),
+          f"shared flow launched sampler/fwd/bwd {launches}")
+    check(x_s.shape == (1 << 17, n_flow) and bool(torch.isfinite(jac_s).all())
+          and bool(torch.isfinite(wf).all()), "shared flow sample() output")
+
+    # the three kernels against their plain versions on this plan: random
+    # weights and BatchNorm statistics, then the trained model
+    errors = [0.0, 0.0, 0.0]
+    model_r = perturb_bn(factory.build_pwquad_flow(gen, n_flow, 4, 16, (32, 32), device=dev,
+                                                   final_rank=4))
+    flow = model_r.flow
+    for what, model in (("random weights", model_r), ("trained", NF.best_model)):
+        w = torch.rand((N_MC_SAMPLER, n_flow), generator=gen, device=dev)
+        x_k, jac_k = ps.build_sampler(flow, model, take_latents=True)(w)
+        x_p, jac_p = make_folded_forward(flow, model)(w)
+        torch.cuda.synchronize()
+        err_x = float((x_k - x_p).abs().max())
+        err_j = float(((jac_k - jac_p) / jac_p).abs().max())
+        errors[0] = max(errors[0], err_x)
+        print(f"phase14 sampler, {what}, operand latents 2^20: max|dx|={err_x:.3e} "
+              f"max|djac/jac|={err_j:.3e}")
+        check(torch.allclose(x_k, x_p, rtol=1e-4, atol=2e-5), f"{what} sampler x vs plain")
+        check(torch.allclose(jac_k, jac_p, rtol=1e-3, atol=0.0), f"{what} sampler jac vs plain")
+    for what, model in (("random weights", model_r), ("trained stale", NF._model)):
+        e_f, e_b = hold_train(f"mc {what} n=2^18", pt.TrainPlan(model.flow),
+                              pt.fold_flow(model).detach(),
+                              torch.rand((N_MC_TRAIN, n_flow), generator=gen, device=dev),
+                              tag="phase14")
+        errors[1], errors[2] = max(errors[1], e_f), max(errors[2], e_b)
+    # their times on this plan (random weights), beside the plain versions
+    # and the bounds
+    plan = pt.TrainPlan(flow)
+    flat = pt.fold_flow(model_r).detach()
+    plan.descriptor(dev)
+    seeded = ps.build_sampler(flow, model_r, layout="dim_major")
+    plain = make_folded_forward(flow, model_r)
+    w = torch.rand((N_MC_SAMPLER, n_flow), generator=gen, device=dev)
+    w_t = torch.rand((N_MC_TRAIN, n_flow), generator=gen, device=dev)
+    xbar = 0.3 * torch.randn((N_MC_TRAIN, n_flow), generator=gen, device=dev)
+    jbar = torch.randn(N_MC_TRAIN, generator=gen, device=dev)
+    _, jac, stage = pt.train_forward(plan, flat, w_t)
+    flat_g, w_g = flat.clone().requires_grad_(True), w_t.clone().requires_grad_(True)
+    outs = pt.folded_forward_ref(flow, flat_g, w_g)
+    kernel_t = {
+        "sampler": (N_MC_SAMPLER, time_ms(lambda: seeded(7, N_MC_SAMPLER)),
+                    time_ms(lambda: plain(w))),
+        "fwd": (N_MC_TRAIN, time_ms(lambda: pt.train_forward(plan, flat, w_t)),
+                time_ms(lambda: pt.folded_forward_ref(flow, flat, w_t))),
+        "bwd": (N_MC_TRAIN, time_ms(lambda: pt.train_backward(plan, flat, stage, jac, jbar, xbar,
+                                                              latents=w_t)),
+                time_ms(lambda: torch.autograd.grad(outs, (flat_g, w_g), (xbar, jbar),
+                                                    retain_graph=True))),
+    }
+    del outs
+    print(f"phase14 plan launches (block, weights in shared memory): sampler "
+          f"{ps.SamplerPlan(flow).config}, forward {plan.fwd_config[False]}, backward "
+          f"{plan.bwd_config}")
+    for kernel, (n_k, ms, plain_ms) in kernel_t.items():
+        flops, nbytes = kernel_work(pt, flow, kernel, n_k)
+        b_ms, b_by = bound_ms(flops, nbytes)
+        print(f"phase14 plan {kernel} n={n_k}: {ms:.4f} ms (plain {plain_ms:.4f} ms), bound "
+              f"{b_ms:.5f} ms by {b_by} ({flops / n_k:.0f} FLOP and {nbytes / n_k:.1f} B per "
+              f"sample), {b_ms / ms:.2%} of the bound {card}")
+
+    # the reference integral: uniform latents through the fixed-alpha
+    # integrand, float64
+    tot, tot2, n_u = 0.0, 0.0, 8 * N_MC_UNIFORM
+    for _ in range(8):
+        v = g(torch.rand((N_MC_UNIFORM, n_flow), generator=gen, device=dev,
+                         dtype=torch.float64))
+        tot += float(v.sum())
+        tot2 += float((v ** 2).sum())
+    sig_u = tot / n_u
+    err_u = math.sqrt(max(tot2 / n_u - sig_u ** 2, 0.0) / n_u)
+    print(f"phase14 uniform MC of the fixed-alpha integrand, 8 x 2^20 float64: "
+          f"{pb(sig_u):.5f} +- {pb(err_u):.5f} pb, ESS {sig_u ** 2 / (tot2 / n_u):.5f}")
+
+    def agrees(s, e):
+        return math.isfinite(s) and e > 0 and \
+            abs(s - sig_u) <= 5 * math.hypot(e, err_u) + 0.01 * abs(sig_u)
+
+    check(agrees(sig, err), "shared-flow integrate vs uniform MC")
+
+    # ---- second half: the learned mixture, plain torch (no kernel)
+    ps.LAUNCHES = pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = 0
+    models = mc.build_channel_flows(torch.Generator(device=dev).manual_seed(0), channels, 4, 16,
+                                    [32] * 2, final_rank=4, device=dev)
+    buffers = [{k: b.clone() for k, b in m.named_buffers()} for m in models]
+    opt = optimizers.adamax(5e-3, 1e-4)
+    kw = dict(alphas=list(alphas), loss_mode="kl", **cuts)
+
+    def train(per_channel, epochs, epochs_per_call, seed=3, **extra):
+        return mc.train_multichannel(channels, models, me, E_MC, opt,
+                                     torch.Generator(device=dev).manual_seed(seed),
+                                     batch_per_channel=per_channel,
+                                     mini_batch_per_channel=min(per_channel, MC_MB),
+                                     epochs=epochs, epochs_per_call=epochs_per_call,
+                                     **kw, **extra)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # the first chunk (the pilot and 4 epochs) under the profiler, stopped
+        # there; the other chunks resumed from its checkpoint, host clock
+        path = os.path.join(tmp, "mc.pt")
+        torch.cuda.reset_peak_memory_stats()
+        prof_ms, prof_ops = device_profile(
+            "phase14", f"train_multichannel's first chunk (pilot + {MC_EPOCHS_PER_CALL} epochs "
+            "of 2 x 2^19 in 8 minibatches)",
+            lambda: train(MC_PER_CHANNEL, MC_EPOCHS, MC_EPOCHS_PER_CALL, save_state=path,
+                          stop_after_chunks=1), card)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train(MC_PER_CHANNEL, MC_EPOCHS, MC_EPOCHS_PER_CALL, save_state=path,
+                    resume_from=path)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        n_rest = MC_EPOCHS - MC_EPOCHS_PER_CALL
+        h = out["history"]
+        print(f"phase14 train_multichannel: {MC_EPOCHS} epochs of 2 x 2^19 in minibatches of "
+              f"2 x 2^16 (chunks of {MC_EPOCHS_PER_CALL}, checkpointed); the first chunk "
+              f"profiled ({prof_ms / MC_EPOCHS_PER_CALL:.1f} ms of device time and "
+              f"{prof_ops // MC_EPOCHS_PER_CALL} device operations per epoch, pilot included), "
+              f"the other {n_rest} epochs resumed in {train_s:.2f} s = "
+              f"{train_s / n_rest * 1e3:.1f} ms/epoch (host clock, synchronized; checkpoints "
+              f"included); peak memory {peak:.2f} GiB {card}")
+        print(f"phase14 train_multichannel ESS by epoch {np.round(h['ess'], 5).tolist()}; best "
+              f"{out['best_ess']:.5f}; best alphas {np.round(out['best_alphas'], 4).tolist()}")
+        check(len(h["ess"]) == MC_EPOCHS, "resumed history holds every epoch")
+        for name in ("loss", "integral", "ess", "alphas"):
+            check(bool(np.isfinite(h[name]).all()), f"train_multichannel history {name} finite")
+        for m in out["params"] + out["best_params"]:
+            check(all(bool(torch.isfinite(p).all()) for p in m.parameters()),
+                  "trained flows' weights finite")
+        for m, before in zip(out["params"] + out["best_params"], buffers + buffers):
+            check(all(torch.equal(b, before[k]) for k, b in m.named_buffers()),
+                  "BatchNorm buffers unchanged by training")
+        check(out["best_ess"] > h["ess"][0],
+              f"best ESS {out['best_ess']} above epoch 0's {h['ess'][0]}")
+        a_all = np.concatenate([h["alphas"], out["best_alphas"][None]])
+        check(bool(np.allclose(a_all.sum(1), 1.0, atol=1e-5)) and float(a_all.min()) >= 1e-2,
+              f"alphas sum to 1, each >= alpha_floor (min {a_all.min()})")
+
+        # the gradient at the best parameters: every channel's, finite
+        best = out["best_params"]
+        w_g, aux_g = mc.mixture_weights(channels, best, me, E_MC,
+                                        torch.Generator(device=dev).manual_seed(13), MC_MB,
+                                        out["best_alphas"], **cuts)
+        mc._loss("kl", w_g, aux_g, w_g.detach().max(),
+                 torch.as_tensor(out["best_alphas"], dtype=torch.float32, device=dev)).backward()
+        grads = [p.grad for m in best for p in m.parameters()]
+        check(all(gr is not None and bool(torch.isfinite(gr).all()) for gr in grads),
+              "kl loss gradient at the best flows finite")
+        print(f"phase14 kl gradient at the best flows, 2 x 2^16: {len(grads)} tensors finite, "
+              f"max |g| {max(float(gr.abs().max()) for gr in grads):.3e}")
+        for m in best:
+            m.zero_grad(set_to_none=True)
+
+        # resume: stopped after its first chunk and resumed, against the
+        # uninterrupted run
+        full = train(MC_RESUME_PER_CHANNEL, MC_RESUME_EPOCHS, 2)
+        path = os.path.join(tmp, "resume.pt")
+        train(MC_RESUME_PER_CHANNEL, MC_RESUME_EPOCHS, 2, save_state=path, stop_after_chunks=1)
+        res = train(MC_RESUME_PER_CHANNEL, MC_RESUME_EPOCHS, 2, resume_from=path)
+        same = all(np.array_equal(full["history"][k], res["history"][k]) for k in full["history"])
+        worst = max(float(np.max(np.abs(res["history"][k] - full["history"][k])
+                                 / np.maximum(np.abs(full["history"][k]), 1e-30)))
+                    for k in full["history"])
+        why = "" if same else (" (the nondeterministic candidates: CUDA's backward of "
+                               "torch.gather and of the flows' column indexing, which may "
+                               "accumulate with atomicAdd)")
+        print(f"phase14 resume (2 x 2^17, 4 epochs in chunks of 2, stopped after 1): history "
+              f"{'bit-identical' if same else 'not bit-identical'} to the uninterrupted run, "
+              f"max rel diff {worst:.3e}{why}")
+        check(worst <= 1e-3, "resumed history within 1e-3 of the uninterrupted run")
+
+        # stratified sample at the best flows (the training batch): the
+        # integral and ESS, and the cross section on and off the Z in (01)
+        def on_z(momenta):
+            s01 = lorentz.square(torch.as_tensor(momenta[..., 2, :] + momenta[..., 3, :]))
+            return (torch.abs(torch.sqrt(torch.clamp_min(s01, 0.0)) - MZ) < 5 * GZ).double()
+
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            w_s, aux_s = mc.multichannel_sample(channels, best, me, E_MC,
+                                                torch.Generator(device=dev).manual_seed(5),
+                                                N_MC_SAMPLE, out["best_alphas"],
+                                                with_kinematics=True, **cuts)
+        z_s = on_z(aux_s["momenta"])
+        w_s = w_s.double()
+        sig_mc, err_mc, ess_mc = (float(v) for v in mc.combine_stratified(w_s, out["best_alphas"]))
+        strat_z = [tuple(float(v) for v in mc.combine_stratified(w_s * part,
+                                                                 out["best_alphas"])[:2])
+                   for part in (z_s, 1 - z_s)]
+        del aux_s, z_s
+        print(f"phase14 learned mixture: multichannel_sample(2 x 2^19) = {pb(sig_mc):.5f} +- "
+              f"{pb(err_mc):.5f} pb, ESS {ess_mc:.5f} (shared flow {ess_flow:.5f}); on the Z in "
+              f"(01) {pb(strat_z[0][0]):.5f} +- {pb(strat_z[0][1]):.5f} pb, off it "
+              f"{pb(strat_z[1][0]):.5f} +- {pb(strat_z[1][1]):.5f} pb; uniform MC "
+              f"{pb(sig_u):.5f} +- {pb(err_u):.5f} pb")
+        check(bool(torch.isfinite(w_s).all()), "mixture weights finite")
+        check(agrees(sig_mc, err_mc), "learned-mixture integral vs uniform MC")
+        ms = time_ms(lambda: mc.multichannel_sample(channels, best, me, E_MC, gen, MC_MB,
+                                                    out["best_alphas"], **cuts))
+        print(f"phase14 mixture_weights 2 x 2^16 without gradients: {ms:.3f} ms (CUDA events, "
+              f"median of 11) {card}")
+        device_profile("phase14", "one multichannel_sample(2 x 2^16)",
+                       lambda: mc.multichannel_sample(channels, best, me, E_MC, gen, MC_MB,
+                                                      out["best_alphas"], **cuts), card)
+
+        # unweighting: global and per-channel maxima, then partial to LHE;
+        # a numpy RuntimeWarning (overflow, 0/0) in the unweighters fails
+        unw = dict(batch_per_channel=MC_UNW_BATCH, **cuts)
+        for tag, pc, n_ev in (("global-max", False, MC_EVENTS_GLOBAL),
+                              ("per-channel-max", True, MC_EVENTS)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with warnings.catch_warnings():
+                warnings.simplefilter("error", RuntimeWarning)
+                events, xbs, eff, n_over = mc.multichannel_unweight(
+                    channels, best, me, E_MC, torch.Generator(device=dev).manual_seed(7),
+                    out["best_alphas"], n_events=n_ev, wmax_quantile=0.9999,
+                    per_channel_max=pc, **unw)
+            unw_s = time.perf_counter() - t0
+            print(f"phase14 unweighted [{tag}]: {len(events)} events in {unw_s:.3f} s = "
+                  f"{len(events) / unw_s:.4e} events/s, efficiency {eff:.5f}, overweight "
+                  f"{n_over} {card}")
+            check(len(events) >= n_ev and events.shape[1:] == (6, 4)
+                  and xbs.shape == (len(events), 2) and 0 < eff <= 1
+                  and bool(np.isfinite(events).all()), f"{tag} unweighted events")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with warnings.catch_warnings():
+            warnings.simplefilter("error", RuntimeWarning)
+            events, xbs, wts, info = mc.multichannel_unweight(
+                channels, best, me, E_MC, torch.Generator(device=dev).manual_seed(9),
+                out["best_alphas"], n_events=MC_EVENTS, wmax_quantile=0.9, per_channel_max=True,
+                partial_unweight=True, **unw)
+        unw_s = time.perf_counter() - t0
+        rate = np.asarray(out["best_alphas"], np.float64) * info["w_max"]
+        print(f"phase14 partial per-channel unweighting (quantile 0.9): {len(events)} events in "
+              f"{unw_s:.3f} s = {len(events) / unw_s:.4e} events/s, Kish efficiency "
+              f"{info['eff']:.5f}, accept rate {info['accept_rate']:.5f}, overweight "
+              f"{info['n_overweight']}, w_max {info['w_max'].tolist()}, thinning "
+              f"{(rate / rate.max()).tolist()} {card}")
+        check(len(events) >= MC_EVENTS and bool((wts >= 1.0).all()) and 0 < info["eff"] <= 1,
+              "partial unweighted events")
+        # every channel present: each round proposes B per live channel, and
+        # channel k's accepted weights sum to alpha_k E_k[w] / R per proposal
+        # (R = max_k alpha_k w_max_k), so sigma = R L sum(weights) / n_proposals
+        # on and off the Z against the stratified sample's
+        n_prop = round(len(wts) / info["accept_rate"])
+        scale = rate.max() * np.count_nonzero(rate) / n_prop
+        z_p = on_z(torch.from_numpy(events).double()).numpy()
+        for (s_ref, e_ref), part, where in zip(strat_z, (z_p, 1 - z_p), ("on", "off")):
+            y = wts * part
+            s_p = scale * float(y.sum())
+            e_p = scale * math.sqrt(max(float((y ** 2).sum()) - float(y.sum()) ** 2 / n_prop, 0.0))
+            print(f"phase14 partial sample {where} the Z in (01): {pb(s_p):.5f} +- "
+                  f"{pb(e_p):.5f} pb against the stratified sample's {pb(s_ref):.5f} +- "
+                  f"{pb(e_ref):.5f} pb")
+            check(np.all(rate > 0) and abs(s_p - s_ref) <= 5 * math.hypot(e_p, e_ref)
+                  + 0.01 * sig_mc, f"partial sample's cross section {where} the Z vs stratified")
+        lhe_path = os.path.join(tmp, "zz_multichannel.lhe")
+        write_lhe(lhe_path, events, pdgs=[2, -2, 11, -11, 13, -13],
+                  weights=wts / max(float(wts.mean()), 1e-300), xb=xbs, E_beam=E_MC / 2,
+                  sigma_pb=pb(sig_mc), sigma_err_pb=pb(err_mc))
+        back = read_lhe(lhe_path)
+        lab = lorentz.boost_to_lab_frame(torch.from_numpy(events).double(),
+                                         torch.from_numpy(xbs[:, 0]).double(),
+                                         torch.from_numpy(xbs[:, 1]).double()).numpy()
+        dev_rel = float(np.max(np.abs(back["momenta"] - lab) / (np.abs(lab) + lab[..., :1])))
+        print(f"phase14 LHE round trip: {len(back['momenta'])} events, max |dp| / (|p| + E) "
+              f"{dev_rel:.3e}, {os.path.getsize(lhe_path)} bytes")
+        check(len(back["momenta"]) == len(events) and dev_rel <= 1e-6, "LHE round trip")
+    second = (ps.LAUNCHES, pt.FWD_LAUNCHES, pt.BWD_LAUNCHES)
+    print(f"phase14 learned mixture launched sampler/fwd/bwd {second} (plain torch)")
+    check(second == (0, 0, 0), "the learned mixture's path launches no kernel")
     return launches, errors
 
 
@@ -1047,6 +1457,25 @@ def main():
     check(torch.allclose(jac_k, jac_p, rtol=1e-3, atol=0.0), "wide128 sampler jac vs plain")
     hold_train("wide128 trained n=10000", wide_plan, pt.fold_flow(NF_w._model).detach(),
                torch.rand((10000, 2), generator=gen, device=dev))
+    # the workspace backward at 2^18 beside its plain version (autograd of
+    # folded_forward_ref) and its bound
+    n_k = 1 << 18
+    flat = pt.fold_flow(NF_w._model).detach()
+    w_t = torch.rand((n_k, 2), generator=gen, device=dev)
+    xbar, jbar = cotangents(n_k, 2)
+    _, jac, stage = pt.train_forward(wide_plan, flat, w_t)
+    flat_g, w_g = flat.clone().requires_grad_(True), w_t.clone().requires_grad_(True)
+    outs = pt.folded_forward_ref(NF_w._flow, flat_g, w_g)
+    ms = time_ms(lambda: pt.train_backward(wide_plan, flat, stage, jac, jbar, xbar,
+                                           latents=w_t))
+    plain_ms = time_ms(lambda: torch.autograd.grad(outs, (flat_g, w_g), (xbar, jbar),
+                                                   retain_graph=True))
+    del outs
+    flops, nbytes = kernel_work(pt, NF_w._flow, "bwd", n_k)
+    b_ms, b_by = bound_ms(flops, nbytes)
+    print(f"phase11 wide128 bwd (workspace kernel) n={n_k}: {ms:.4f} ms (plain {plain_ms:.4f} "
+          f"ms), bound {b_ms:.5f} ms by {b_by} ({flops / n_k:.0f} FLOP and {nbytes / n_k:.1f} B "
+          f"per sample), {b_ms / ms:.2%} of the bound {card}")
 
     # ---- phase 12: the event-generation side (bench.py's stage unweight_qmc,
     # bench.py:423-453) on the phase 5 trained camel model: the unweighting
@@ -1177,6 +1606,10 @@ def main():
     zz_launches, zz_err = phase13(dev, card, gen, hold_train, perturb_bn)
     max_abs_err = max(max_abs_err, zz_err[0])
 
+    # ---- phase 14: the ZZ/Z' multi-channel path of examples/zz_multichannel.py
+    mc_launches, mc_err = phase14(dev, card, gen, hold_train, perturb_bn)
+    max_abs_err = max(max_abs_err, mc_err[0])
+
     camel_t = timings["camel2d_trained"]
     camel_tt = train_t["camel2d_trained"]
     src = "nf_tpu_torch/ops/csrc/pwquad_train.cu"
@@ -1185,7 +1618,7 @@ def main():
         "route": "cuda",
         "source": "nf_tpu_torch/ops/csrc/pwquad_sampler.cu",
         "replaces": "nf_tpu/ops/pwquad_sampler.py:286",
-        "launches": launches + eventgen_launches + zz_launches[0],
+        "launches": launches + eventgen_launches + zz_launches[0] + mc_launches[0],
         "max_abs_err": max_abs_err,
         "ms": camel_t["kernel_seeded_ms"],
         "plain_ms": camel_t["plain_rand_plus_folded_ms"],
@@ -1197,8 +1630,8 @@ def main():
         "route": "cuda",
         "source": src,
         "replaces": "nf_tpu/ops/pwquad_train.py:608",
-        "launches": train_launches[0] + zz_launches[1],
-        "max_abs_err": max(train_err[0], zz_err[1]),
+        "launches": train_launches[0] + zz_launches[1] + mc_launches[1],
+        "max_abs_err": max(train_err[0], zz_err[1], mc_err[1]),
         "ms": camel_tt["fwd_kernel_ms"],
         "plain_ms": camel_tt["fwd_plain_ms"],
         "bound_ms": bounds["camel2d_trained", "fwd"][0],
@@ -1209,8 +1642,8 @@ def main():
         "route": "cuda",
         "source": src,
         "replaces": "nf_tpu/ops/pwquad_train.py:681",
-        "launches": train_launches[1] + zz_launches[2],
-        "max_abs_err": max(train_err[1], zz_err[2]),
+        "launches": train_launches[1] + zz_launches[2] + mc_launches[2],
+        "max_abs_err": max(train_err[1], zz_err[2], mc_err[2]),
         "ms": camel_tt["bwd_kernel_ms"],
         "plain_ms": camel_tt["bwd_plain_ms"],
         "bound_ms": bounds["camel2d_trained", "bwd"][0],

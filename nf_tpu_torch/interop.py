@@ -77,3 +77,10 @@ def to_numpy(model: FlowModel):
         state.append({"bn_in": bn_s(cond.bn_in),
                       "bns": [bn_s(bn) for bn in cond.bns]})
     return tuple(params), tuple(state)
+
+
+def channel_models_from_numpy(flows, params, states, dtype=torch.float64, device="cpu"):
+    """nf_tpu's per-channel ``(flows, params, states)`` tuples (what its
+    ``build_channel_flows`` returns, leaves as numpy arrays) as a tuple of
+    the port's models, one per channel."""
+    return tuple(from_numpy(f, p, s, dtype, device) for f, p, s in zip(flows, params, states))

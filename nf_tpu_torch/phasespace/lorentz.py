@@ -51,7 +51,9 @@ def boost(p, beta):
     constant rounds to 1.0, so there the clamp does nothing, in both
     packages."""
     b2 = torch.clamp(torch.sum(beta * beta, dim=-1), max=1.0 - 1e-11)
-    gamma = 1.0 / torch.sqrt(1.0 - b2)
+    # rsqrt: on the CPU it is 1 / (IEEE sqrt), nf_tpu's bits; torch.sqrt
+    # there is not correctly rounded in float64
+    gamma = torch.rsqrt(1.0 - b2)
     bp = torch.sum(p[..., 1:] * beta, dim=-1)
     moving = b2 > 0
     gamma2 = torch.where(moving, (gamma - 1.0) / torch.where(moving, b2, 1.0), 0.0)

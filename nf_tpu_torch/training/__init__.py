@@ -1,4 +1,4 @@
-from nf_tpu_torch.training import manager, optimizers, unweight
+from nf_tpu_torch.training import manager, multichannel, optimizers, unweight
 from nf_tpu_torch.training.manager import (
     AffineManager,
     BasicManager,
@@ -8,6 +8,7 @@ from nf_tpu_torch.training.manager import (
 
 __all__ = [
     "manager",
+    "multichannel",
     "optimizers",
     "unweight",
     "BasicManager",

@@ -1,3 +1,3 @@
-from nf_tpu_torch.utils import qmc
+from nf_tpu_torch.utils import checkpoint, lhe, qmc
 
-__all__ = ["qmc"]
+__all__ = ["checkpoint", "lhe", "qmc"]
