@@ -43,6 +43,13 @@ against their plain versions on that plan), then the learned mixture
 checkpoints and a resume, stratified sampling, unweighting with global and
 per-channel maxima, partial unweighting written to an LHE file and read
 back), both integrals against uniform MC of the fixed-alpha integrand.
+Phase 15 drives the experiment side: stop and resume of both trainers
+against the uninterrupted run (camel-2D and the flagship), the run logger
+and checkpoints, ``run_sweep`` over ``pro`` (sequential, and in a child
+process on the card) and ``prov`` (a thread), VEGAS on the card against the
+CPU, the ensemble (8 seeds, its best flow through the sampler, 64 runs, a
+group's epoch loop with host syncs made errors, float64 against the CPU) and
+the profiling helpers.
 Prints one ``{"kernels": [...]}`` line;
 the last line of standard output is ``{"ok": true, "device": {...}}``; any
 failed check exits non-zero before it is printed.  Exits non-zero at once
@@ -150,23 +157,32 @@ def device_profile(tag, what, fn, card):
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # the device's own records (kernels, copies, memsets), summed by name
-    # from the tracer's raw events: key_averages() builds a Python object
-    # per event (minutes on a training chunk) and has shown fewer device
-    # operations than the trace holds (none at all for one call of two
-    # small kernels).  An annotated range's span on the device (the
-    # optimizer step's) is left out: it repeats the kernels inside it
-    rows = {}
-    for e in prof.profiler.kineto_results.events():
-        if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
-            us, n = rows.get(e.name(), (0.0, 0))
-            rows[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        # the device's own records (kernels, copies, memsets), summed by
+        # name from the tracer's raw events: key_averages() builds a Python
+        # object per event (minutes on a training chunk) and has shown fewer
+        # device operations than the trace holds.  An annotated range's span
+        # on the device (the optimizer step's) is left out: it repeats the
+        # kernels inside it
+        rows = {}
+        for e in prof.profiler.kineto_results.events():
+            if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
+                us, n = rows.get(e.name(), (0.0, 0))
+                rows[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+        if rows:
+            break
+        # a trace of a call of a few small kernels (one ToyPDF call) has come
+        # back with no device record at all, from key_averages() and from
+        # the raw events alike, where other runs' traces of the same call
+        # held its kernels
+        print(f"{tag} {what}: the tracer returned no device record (try {attempt + 1}); "
+              "profiling the call again")
     total = sum(us for us, _ in rows.values())
     launches = sum(n for _, n in rows.values())
     check(total > 0, f"{what} profile shows device time")
@@ -941,6 +957,402 @@ def phase14(dev, card, gen, hold_train, perturb_bn):
     return launches, errors
 
 
+# ---- phase 15: experiments and sweeps (the resume, the logger and
+# checkpoints, the pro/prov sweep, VEGAS, the ensemble, profiling)
+P15_CAMEL_BATCH, P15_CAMEL_EPOCHS = 10000, 40       # README camel, 40 + 40 against 80
+P15_FLAG_BATCH, P15_FLAG_MINI, P15_FLAG_EPOCHS = 1 << 20, 1 << 18, 4   # bench.py:327-379
+P15_SWEEP_EPOCHS, P15_VAR_N = 150, 1 << 20          # EPOCH_LENGTH cut to phase 5's 150
+P15_VEGAS_NEVAL, P15_VEGAS_CHECK_N = 100_000, 20_000   # examples/camel2d.py
+P15_ENS = (8, 8000, 60)                              # examples/production_features.py
+P15_STRESS = (64, 10000, 40)                         # tools/ensemble_stress.py
+P15_F64 = (4, 2000, 1000, 10)                        # runs, batch, minibatch, epochs
+P15_INTEG_N, P15_N_TRAIN = 1 << 21, 1 << 18
+
+
+def gauss10(x):
+    import torch
+    return torch.exp(-torch.sum((x - 0.5) ** 2, dim=1) / 0.2)
+
+
+def pro_on_card(para):
+    """The process-mode sweep worker: writes the device the child process
+    sees beside its log, then runs ``pro`` with phase 15's epoch count."""
+    import torch
+    from nf_tpu_torch.utils import experiment
+    experiment.EPOCH_LENGTH = P15_SWEEP_EPOCHS
+    d = os.path.join(para["logdir"], str(para["id"]))
+    os.makedirs(d, exist_ok=True)
+    cuda = torch.cuda.is_available()
+    with open(os.path.join(d, "device.json"), "w") as fh:
+        json.dump({"cuda": cuda, "pid": os.getpid(),
+                   "name": torch.cuda.get_device_name(0) if cuda else "cpu"}, fh)
+    experiment.pro(para)
+
+
+def state_digest(model):
+    import hashlib
+    h = hashlib.sha256()
+    for name, t in model.state_dict().items():
+        h.update(name.encode())
+        h.update(t.detach().cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def phase15(dev, card, kind, hold_train):
+    """Experiments and sweeps on the card: checks 1-6 (``phase15 check N``).
+    Returns ``(launches, errors)`` as :func:`phase13` does."""
+    import copy
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from nf_tpu_torch import PWQuadManager, interop
+    from nf_tpu_torch.flows import factory
+    from nf_tpu_torch.flows.fast_eval import make_folded_forward
+    from nf_tpu_torch.ops import pwquad_sampler as ps
+    from nf_tpu_torch.ops import pwquad_train as pt
+    from nf_tpu_torch.training import ensemble, metrics, optimizers, vegas
+    from nf_tpu_torch.utils import experiment, profiling
+    from nf_tpu_torch.utils.sweep import RESULT_FIELDS, run_sweep
+
+    exact = camel_exact()
+    t_phase = time.perf_counter()
+    tmp_dir = tempfile.TemporaryDirectory(prefix="phase15_")
+    tmp = tmp_dir.name
+
+    def gate(sig, err):
+        return math.isfinite(sig) and err > 0 and abs(sig - exact) <= 5 * err + 0.01 * exact
+
+    class Run(metrics.MemoryLogger):
+        _id = 15
+
+    def counts():
+        return (ps.LAUNCHES, pt.FWD_LAUNCHES, pt.BWD_LAUNCHES)
+
+    def delta(before):
+        return tuple(a - b for a, b in zip(counts(), before))
+
+    ps.LAUNCHES = pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = 0
+    torch.cuda.synchronize()
+
+    # ---- check 1: stop and resume against the uninterrupted run
+    def train(n_flow, model, f, bn_stats, epochs, batch, mini, epoch_start=0, resume_from=None,
+              **extra):
+        NF = PWQuadManager(n_flow=n_flow, seed=0, device=dev)
+        NF.create_model(*model[0], **model[1])
+        kw = dict(log=False, batch_size=batch, mini_batch_size=mini, pretty_progressbar=False,
+                  integrate=n_flow == 2, preburn_time=10 if n_flow == 2 else 0,
+                  kill_counter=1000, bn_stats=bn_stats, stats_every=4)
+        kw.update(extra)
+        t0 = time.perf_counter()
+        NF._train_variance_forward_seq(f, optimizers.adamax(2e-3, 1e-4), epochs=epochs,
+                                       epoch_start=epoch_start, resume_from=resume_from, **kw)
+        torch.cuda.synchronize()
+        return NF, time.perf_counter() - t0
+
+    camel_model = ((2, 4, [3] * 3), {})
+    flag_model = ((8, 8, [16, 16]), {"final_rank": 4})
+    resumed, log_run = {}, Run()
+    for tag, n_flow, model, f, bn_stats, epochs, batch, mini in (
+            ("camel stale", 2, camel_model, camel, "stale", P15_CAMEL_EPOCHS, P15_CAMEL_BATCH,
+             P15_CAMEL_BATCH),
+            ("camel batch", 2, camel_model, camel, "batch", P15_CAMEL_EPOCHS, P15_CAMEL_BATCH,
+             P15_CAMEL_BATCH),
+            ("flagship stale", 10, flag_model, gauss10, "stale", P15_FLAG_EPOCHS,
+             P15_FLAG_BATCH, P15_FLAG_MINI)):
+        logged = {"log": True, "logdir": os.path.join(tmp, "logdir"), "run": log_run} \
+            if tag == "camel stale" else {}
+        before = counts()
+        whole, whole_s = train(n_flow, model, f, bn_stats, 2 * epochs, batch, mini, **logged)
+        first, first_s = train(n_flow, model, f, bn_stats, epochs, batch, mini)
+        state = os.path.join(tmp, tag.replace(" ", "_") + ".pt")
+        first.save_training_state(state)
+        NF, resumed_s = train(n_flow, model, f, bn_stats, epochs, batch, mini, epoch_start=epochs,
+                              resume_from=state)
+        launched = delta(before)
+        resumed[tag] = (whole, NF)
+        hist_err = float(np.max(np.abs(np.asarray(NF.history) / np.asarray(whole.history) - 1)))
+        integ_err = float(np.max(np.abs(NF._integ_hist - whole._integ_hist)
+                                 / np.maximum(np.abs(whole._integ_hist), 1e-30)))
+        param_err = max(float((a - b).abs().max()) for a, b in zip(
+            NF._model.state_dict().values(), whole._model.state_dict().values()))
+        digests = [state_digest(m) for m in (whole.best_model, NF.best_model, whole._model,
+                                             NF._model)]
+        print(f"phase15 resume {tag}: {2 * epochs} epochs in {whole_s:.3f} s against {epochs} + "
+              f"{epochs} resumed in {first_s:.3f} + {resumed_s:.3f} s (host clock); history "
+              f"max rel diff {hist_err:.3e}, integral history {integ_err:.3e}, parameters max "
+              f"|d| {param_err:.3e}; best/live digests {digests}; launches sampler/fwd/bwd "
+              f"{launched} {card}")
+        check(len(NF.history) == len(whole.history) == 2 * epochs, f"{tag} resumed history length")
+        if bn_stats == "stale":
+            check(NF.history == whole.history and np.array_equal(NF._integ_hist, whole._integ_hist)
+                  and np.array_equal(NF._err_hist, whole._err_hist)
+                  and digests[0] == digests[1] and digests[2] == digests[3],
+                  f"{tag}: the resume equals the uninterrupted run bit for bit")
+            n_mb = batch // mini
+            refreshes = (2 * epochs - 1) // 4 + 1 + (epochs - 1) // 4 + 1 + (epochs - 1) // 4 + 1
+            check(launched == (0, 4 * epochs * n_mb + refreshes, 4 * epochs * n_mb),
+                  f"{tag} launched sampler/fwd/bwd {launched}")
+        else:
+            # CUDA's indexing backward accumulates with atomics (as in phase 14)
+            check(hist_err <= 1e-3 and integ_err <= 1e-3,
+                  f"{tag}: the resume within 1e-3 of the uninterrupted run")
+    print("phase15 check 1: the stale resumes equal the uninterrupted runs bit for bit (camel "
+          "and flagship); the batch resume within 1e-3 (atomics in the indexing backward)")
+    for tag in ("camel stale", "camel batch"):
+        NF = resumed[tag][1]
+        before = counts()
+        sig, err = NF.integrate(camel, 8, P15_INTEG_N)
+        print(f"phase15 resumed {tag} integrate(8, 2^21) = {sig:.7f} +- {err:.2e} (exact "
+              f"{exact:.7f}, rel err {abs(sig - exact) / exact:.2e}); sampler launches "
+              f"{delta(before)[0]}")
+        check(gate(sig, err), f"resumed {tag} integral within 5 err + 1%")
+        check(delta(before)[0] == 8, f"resumed {tag} integrate launches")
+
+    # ---- check 2: the logdir and the run logger of the uninterrupted stale camel run
+    whole = resumed["camel stale"][0]
+    ckdir = os.path.join(tmp, "logdir", str(Run._id))
+    sc = log_run.scalars
+    check(sorted(os.listdir(ckdir)) == ["torch", "torch_int"],
+          f"checkpoint files {os.listdir(ckdir)}")
+    check([s for s, _ in sc["training.loss"]] == list(range(2 * P15_CAMEL_EPOCHS))
+          and len(sc["training.loss_rel"]) == 2 * P15_CAMEL_EPOCHS
+          and [v for _, v in sc["training.loss"]] == whole.history
+          and sc["training.int_loss"] == [(0, whole.int_loss)]
+          and sc["training.integ"] == [(0, whole.integ_tot)]
+          and sc["training.err"] == [(0, whole.err_tot)], "the run logger's scalars")
+    fresh = PWQuadManager(n_flow=2, seed=7, device=dev)
+    fresh.create_model(2, 4, [3] * 3)
+    meta = fresh.load_checkpoint(os.path.join(ckdir, "torch"))
+    before = counts()
+    a = fresh.integrate(camel, 4, P15_INTEG_N, seed=5)
+    b = whole.integrate(camel, 4, P15_INTEG_N, seed=5)
+    check(delta(before)[0] == 8, "load_checkpoint integrals launch the sampler")
+    print(f"phase15 check 2: {ckdir} holds torch_int and torch; logger "
+          f"{ {k: len(v) for k, v in sc.items()} }; load_checkpoint meta {meta}; "
+          f"integrate(4, 2^21, seed=5) {a} from the checkpoint, {b} from the trained manager")
+    check(a == b and meta["best_epoch"] == whole.best_epoch, "load_checkpoint's model integrates "
+          "as the trained manager's best model")
+
+    # ---- check 3: the sweep (pro sequential x2, prov in a thread, pro in a process)
+    sweep_dir = os.path.join(tmp, "sweep")
+    base = {"n_flow": 2, "n_bins": 4, "NN_width": 3, "NN_length": 3, "dev": 0, "lr": 2e-3,
+            "weight_decay": 1e-4, "var_n": P15_VAR_N, "batch_size": 10000, "pt": 50,
+            "f": camel, "logdir": sweep_dir, "log": False, "device": str(dev)}
+    old_len = experiment.EPOCH_LENGTH
+    experiment.EPOCH_LENGTH = P15_SWEEP_EPOCHS
+    try:
+        before = counts()
+        t0 = time.perf_counter()
+        results = run_sweep([dict(base, id=0, seed=0), dict(base, id=1, seed=1)])
+        seq_s = time.perf_counter() - t0
+        sweep_launches = delta(before)
+    finally:
+        experiment.EPOCH_LENGTH = old_len
+    t0 = time.perf_counter()
+    results += run_sweep([dict(base, id=2, worker=experiment.prov)], mode="thread")
+    thread_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    results += run_sweep([dict(base, id=3, seed=2, worker=pro_on_card)], mode="process")
+    proc_s = time.perf_counter() - t0
+    with open(os.path.join(sweep_dir, "3", "device.json")) as fh:
+        child = json.load(fh)
+    print(f"phase15 sweep (pro epochs cut to EPOCH_LENGTH = {P15_SWEEP_EPOCHS}, phase 5's count): "
+          f"sequential 2 x pro {seq_s:.2f} s (sampler launches {sweep_launches[0]}), thread prov "
+          f"{thread_s:.2f} s, process pro {proc_s:.2f} s (host clock; child pid {child['pid']} on "
+          f"{child['name']}) {card}")
+    for r in sorted(results, key=lambda r: r["id"]):
+        sig, err = r["sigma_pb"] * GEV2_TO_PB, r["sigma_err_pb"] * GEV2_TO_PB
+        print(f"phase15 sweep id {r['id']} {r['method']}: sigma {sig:.7f} +- {err:.2e} (exact "
+              f"{exact:.7f}), {r['duration_s']:.2f} s, func_count {r['func_count']}, best epoch "
+              f"{r['best_epoch']}, final variance {r['final_variance']:.4e}")
+        check(set(r) == set(RESULT_FIELDS) and os.path.exists(
+            os.path.join(sweep_dir, str(r["id"]), "log.txt")), f"sweep id {r['id']} decoded")
+        check(gate(sig, err), f"sweep id {r['id']} sigma within 5 err + 1%")
+    check(sorted((r["id"], r["method"]) for r in results)
+          == [(0, "NIS"), (1, "NIS"), (2, "VEGAS"), (3, "NIS")], "the sweep's four results")
+    check(child["cuda"] and child["name"] == kind and child["pid"] != os.getpid(),
+          f"the process-mode child ran on the card: {child}")
+    check(sweep_launches[0] == 2 * 11, f"sequential pro launched the sampler "
+          f"{sweep_launches[0]} times, not 2 x (sample + 10 integrate)")
+    print("phase15 check 3: every sweep result decoded into RESULT_FIELDS with its log.txt; "
+          "NIS and VEGAS sigmas within their gates; the process-mode child reported the card")
+
+    # ---- check 4: VEGAS, examples/camel2d.py's baseline
+    integ = vegas.VegasIntegrator(2, n_bins=50, seed=0, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    v_mean, v_sdev = integ.run(camel, nitn=10, neval=P15_VEGAS_NEVAL)
+    vegas_s = time.perf_counter() - t0
+    print(f"phase15 VEGAS(2, 50 bins).run(camel, 10 x {P15_VEGAS_NEVAL}) = {v_mean:.7f} +- "
+          f"{v_sdev:.2e} (exact {exact:.7f}) in {vegas_s * 1e3:.2f} ms, "
+          f"{vegas_s * 1e2:.3f} ms per iteration (host clock, one read at the end) {card}")
+    check(gate(v_mean, v_sdev), "VEGAS within 5 sdev + 1%")
+    cpu_gen = torch.Generator().manual_seed(21)
+    draws = [torch.rand((P15_VEGAS_CHECK_N, 2), generator=cpu_gen, dtype=torch.float64)
+             for _ in range(6)]
+    sides = ([], [])
+    hook = vegas._uniform
+    try:
+        for where, edges in zip((dev, torch.device("cpu")), sides):
+            feed = iter(draws)
+            vegas._uniform = lambda g, shape, dtype, device: next(feed).to(device)
+            v = vegas.VegasIntegrator(2, n_bins=50, seed=0, dtype=torch.float64, device=where)
+            for _ in range(len(draws)):
+                v.run(camel, nitn=1, neval=P15_VEGAS_CHECK_N)
+                edges.append(v.edges.cpu())
+    finally:
+        vegas._uniform = hook
+    edge_err = max(float((a - b).abs().max()) for a, b in zip(*sides))
+    print(f"phase15 check 4: VEGAS within its gate; float64 edges on the card against the CPU "
+          f"on the same draws, max |d| over 6 iterations {edge_err:.3e}")
+    check(edge_err <= 1e-10, "VEGAS float64 edges cuda vs cpu within 1e-10")
+
+    # ---- check 5: the ensemble
+    n_runs, batch, epochs = P15_ENS
+    flow, P, B = ensemble.stack_ensemble(lambda g: factory.build_pwquad_flow(
+        g, 2, 4, 4, (3, 3, 3), device=dev), torch.Generator(device=dev).manual_seed(3), n_runs)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = ensemble.train_ensemble(flow, P, B, camel, optimizers.adamax(2e-3, 1e-4),
+                                  torch.Generator(device=dev).manual_seed(4), batch_size=batch,
+                                  epochs=epochs, preburn_time=10, kill_counter=1000)
+    ens_s = time.perf_counter() - t0
+    print(f"phase15 ensemble {n_runs} seeds x {epochs} epochs at batch {batch}: {ens_s:.2f} s "
+          f"(host clock), group {res['group_size']}; best losses "
+          f"{np.round(np.sort(res['best_loss']), 5).tolist()}, phase-A losses "
+          f"{np.round(res['int_loss'], 5).tolist()}, integrals "
+          f"{np.round(res['integ_tot'], 5).tolist()} {card}")
+    check(bool((res["best_loss"] < res["int_loss"]).all()), "every run's best_loss < int_loss")
+    best = int(np.argmin(res["best_loss"]))
+    NF = PWQuadManager(n_flow=2, seed=0, device=dev)
+    NF.create_model(4, 4, [3, 3, 3])
+    member = interop.ensemble_member(flow, (res["best_params"], res["best_bn"]), best)
+    NF._model.load_state_dict(member.state_dict())
+    NF.best_model = copy.deepcopy(NF._model)
+    before = counts()
+    sig, err = NF.integrate(camel, 8, P15_INTEG_N)
+    ens_launches = delta(before)
+    print(f"phase15 ensemble best run {best} in a PWQuadManager: integrate(8, 2^21) = "
+          f"{sig:.7f} +- {err:.2e} (rel err {abs(sig - exact) / exact:.2e}); sampler launches "
+          f"{ens_launches[0]}")
+    check(gate(sig, err) and ens_launches == (8, 0, 0), "the ensemble's best flow integrates "
+          "through the sampler kernel within the gate")
+
+    n_runs, batch, epochs = P15_STRESS
+    flow8, P, B = ensemble.stack_ensemble(lambda g: factory.build_pwquad_flow(
+        g, 2, 4, 4, (8, 8), device=dev), torch.Generator(device=dev).manual_seed(0), n_runs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    res = ensemble.train_ensemble(flow8, P, B, camel, optimizers.adamax(3e-3),
+                                  torch.Generator(device=dev).manual_seed(1), batch_size=batch,
+                                  epochs=epochs, preburn_time=0, kill_counter=100,
+                                  runs_per_call="auto", verbose=True)
+    stress_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    print(f"phase15 ensemble stress: {n_runs} runs x {epochs} epochs at batch {batch} in "
+          f"{stress_s:.2f} s = {n_runs / stress_s:.3f} runs/s, group size {res['group_size']}, "
+          f"max_memory_allocated {peak:.3f} GiB (host clock); best losses median "
+          f"{float(np.median(res['best_loss'])):.4e}, all finite "
+          f"{bool(np.isfinite(res['best_loss']).all())} {card}")
+    check(res["history"].shape == (n_runs, epochs) and bool(np.isfinite(res["history"]).all()),
+          "the 64-run stress completes with finite histories")
+    device_profile("phase15", f"train_ensemble({n_runs} runs x 5 epochs at batch {batch})",
+                   lambda: ensemble.train_ensemble(
+                       flow8, P, B, camel, optimizers.adamax(3e-3),
+                       torch.Generator(device=dev).manual_seed(1), batch_size=batch, epochs=5,
+                       preburn_time=0, kill_counter=100, runs_per_call=None), card)
+    device_profile("phase15", f"VEGAS run(camel, 10 x {P15_VEGAS_NEVAL})",
+                   lambda: vegas.VegasIntegrator(2, n_bins=50, seed=1, device=dev).run(
+                       camel, nitn=10, neval=P15_VEGAS_NEVAL), card)
+
+    # a group's epoch loop with every host sync an error
+    gen_s = torch.Generator(device=dev).manual_seed(2)
+    run = ensemble._group_runner(flow8, camel, optimizers.adamax(3e-3), gen_s, batch, 1, 5, 0,
+                                 100, "var", False, False, torch.float32, dev)
+    P8 = {k: v[:8].clone() for k, v in P.items()}
+    B8 = {k: v[:8].clone() for k, v in B.items()}
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = run(P8, B8)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    check(bool(torch.isfinite(out[2][3]).all()), "the sync-checked group's history")
+
+    runs, batch, mb, epochs = P15_F64
+    cpu = torch.device("cpu")
+    flow64, P, B = ensemble.stack_ensemble(lambda g: factory.build_pwquad_flow(
+        g, 2, 2, 4, (3, 3), torch.float64), torch.Generator().manual_seed(5), runs)
+    lat_gen = torch.Generator().manual_seed(6)
+    lats = [torch.rand((runs, 2, 2 * mb, 2), generator=lat_gen, dtype=torch.float64)] + [
+        torch.rand((runs, batch // mb, mb, 2), generator=lat_gen, dtype=torch.float64)
+        for _ in range(epochs)]
+    hists = []
+    hook = ensemble._uniform
+    try:
+        for where in (dev, cpu):
+            feed = iter(lats)
+            ensemble._uniform = lambda g, shape, dtype, device: next(feed).to(device)
+            r = ensemble.train_ensemble(
+                flow64, {k: v.to(where) for k, v in P.items()},
+                {k: v.to(where) for k, v in B.items()}, camel, optimizers.adamax(3e-3, 1e-4),
+                torch.Generator(device=where), batch_size=batch, mini_batch_size=mb,
+                epochs=epochs, preburn_time=3, kill_counter=100)
+            hists.append(r["history"])
+    finally:
+        ensemble._uniform = hook
+    f64_err = float(np.max(np.abs(hists[0] / hists[1] - 1)))
+    print(f"phase15 check 5: {P15_ENS[0]} seeds below their phase-A losses, the best flow "
+          f"through the sampler within the gate, {P15_STRESS[0]} runs complete, a group's "
+          f"epoch loop under set_sync_debug_mode('error'); float64 {runs} runs x {epochs} "
+          f"epochs on the same latents, card against CPU: history max rel diff {f64_err:.3e}")
+    check(f64_err <= 1e-8, "float64 ensemble history cuda vs cpu within 1e-8")
+
+    # ---- check 6: profiling
+    whole = resumed["camel stale"][0]
+    trace_dir = os.path.join(tmp, "trace")
+    with profiling.trace(trace_dir):
+        whole.integrate(camel, 8, P15_INTEG_N)
+    names = os.listdir(trace_dir)
+    text = "".join(open(os.path.join(trace_dir, n)).read() for n in names)
+    with profiling.Timer() as timer:
+        timer.block_on(whole.sample(P15_INTEG_N))
+    best_s = profiling.benchmark(lambda: whole.sample(P15_INTEG_N), reps=10, warmup=2)
+    print(f"phase15 check 6: profiling.trace wrote {names} ({len(text)} bytes) naming "
+          f"pwquad_sampler_kernel {text.count('pwquad_sampler_kernel')} times; sample(2^21): "
+          f"Timer {timer.seconds * 1e3:.3f} ms, benchmark best of 10 {best_s * 1e3:.3f} ms "
+          f"(host clock, synchronised) {card}")
+    check(len(names) == 1 and "pwquad_sampler_kernel" in text, "the trace names the sampler")
+    check(timer.seconds > 0 and best_s > 0, "Timer and benchmark")
+    torch.cuda.synchronize()
+    launches = counts()
+    print(f"phase15 main path launches sampler/fwd/bwd {launches}")
+    check(all(n > 0 for n in launches), "phase 15 launched every kernel")
+
+    # the kernels against their plain versions on phase 15's plans: the
+    # ensemble's 4-cell flow, the resumed flagship
+    errors = [0.0, 0.0, 0.0]
+    w = torch.rand((P15_INTEG_N, 2), generator=gen_s, device=dev)
+    x_k, jac_k = ps.build_sampler(flow, member, take_latents=True)(w)
+    x_p, jac_p = make_folded_forward(flow, member)(w)
+    errors[0] = float((x_k - x_p).abs().max())
+    print(f"phase15 sampler, the ensemble's best 4-cell flow, operand latents 2^21: max|dx|="
+          f"{errors[0]:.3e} max|djac/jac|={float(((jac_k - jac_p) / jac_p).abs().max()):.3e}")
+    check(torch.allclose(x_k, x_p, rtol=1e-4, atol=2e-5), "ensemble flow sampler x vs plain")
+    check(torch.allclose(jac_k, jac_p, rtol=1e-3, atol=0.0), "ensemble flow sampler jac vs plain")
+    flag = resumed["flagship stale"][1]._model
+    errors[1], errors[2] = hold_train("resumed flagship n=2^18", pt.TrainPlan(flag.flow),
+                                      pt.fold_flow(flag).detach(),
+                                      torch.rand((P15_N_TRAIN, 10), generator=gen_s, device=dev),
+                                      tag="phase15")
+    tmp_dir.cleanup()
+    print(f"phase15: {time.perf_counter() - t_phase:.1f} s {card}")
+    return launches, errors
+
+
 def main():
     import numpy as np
     import torch
@@ -1610,6 +2022,10 @@ def main():
     mc_launches, mc_err = phase14(dev, card, gen, hold_train, perturb_bn)
     max_abs_err = max(max_abs_err, mc_err[0])
 
+    # ---- phase 15: experiments and sweeps
+    ex_launches, ex_err = phase15(dev, card, kind, hold_train)
+    max_abs_err = max(max_abs_err, ex_err[0])
+
     camel_t = timings["camel2d_trained"]
     camel_tt = train_t["camel2d_trained"]
     src = "nf_tpu_torch/ops/csrc/pwquad_train.cu"
@@ -1618,7 +2034,8 @@ def main():
         "route": "cuda",
         "source": "nf_tpu_torch/ops/csrc/pwquad_sampler.cu",
         "replaces": "nf_tpu/ops/pwquad_sampler.py:286",
-        "launches": launches + eventgen_launches + zz_launches[0] + mc_launches[0],
+        "launches": launches + eventgen_launches + zz_launches[0] + mc_launches[0]
+        + ex_launches[0],
         "max_abs_err": max_abs_err,
         "ms": camel_t["kernel_seeded_ms"],
         "plain_ms": camel_t["plain_rand_plus_folded_ms"],
@@ -1630,8 +2047,8 @@ def main():
         "route": "cuda",
         "source": src,
         "replaces": "nf_tpu/ops/pwquad_train.py:608",
-        "launches": train_launches[0] + zz_launches[1] + mc_launches[1],
-        "max_abs_err": max(train_err[0], zz_err[1], mc_err[1]),
+        "launches": train_launches[0] + zz_launches[1] + mc_launches[1] + ex_launches[1],
+        "max_abs_err": max(train_err[0], zz_err[1], mc_err[1], ex_err[1]),
         "ms": camel_tt["fwd_kernel_ms"],
         "plain_ms": camel_tt["fwd_plain_ms"],
         "bound_ms": bounds["camel2d_trained", "fwd"][0],
@@ -1642,8 +2059,8 @@ def main():
         "route": "cuda",
         "source": src,
         "replaces": "nf_tpu/ops/pwquad_train.py:681",
-        "launches": train_launches[1] + zz_launches[2] + mc_launches[2],
-        "max_abs_err": max(train_err[1], zz_err[2], mc_err[2]),
+        "launches": train_launches[1] + zz_launches[2] + mc_launches[2] + ex_launches[2],
+        "max_abs_err": max(train_err[1], zz_err[2], mc_err[2], ex_err[2]),
         "ms": camel_tt["bwd_kernel_ms"],
         "plain_ms": camel_tt["bwd_plain_ms"],
         "bound_ms": bounds["camel2d_trained", "bwd"][0],

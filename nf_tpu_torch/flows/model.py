@@ -98,16 +98,29 @@ class FlowModel(nn.Module):
             Conditioner(c.pass_through, c.nn_sizes, c.hidden_bias, generator,
                         dtype, device, final_rank=c.final_rank)
             for c in flow.cells)
+        # the permutations' index tensors per device, made once: a forward
+        # then copies nothing from the host
+        self._perm = {}
+        self._perm_index(next(self.parameters()).device)
+
+    def _perm_index(self, device):
+        idx = self._perm.get(device)
+        if idx is None:
+            idx = self._perm[device] = {
+                op: torch.as_tensor(permutation_source(op, self.flow.n_flow), device=device)
+                for op in self.flow.ops if op[0] != "cell"}
+        return idx
 
     def forward(self, w: torch.Tensor, train: bool):
         x = w
         jac = torch.ones(w.shape[0], dtype=w.dtype, device=w.device)
+        perm = self._perm_index(w.device)
         for op in self.flow.ops:
             if op[0] == "cell":
                 x, jac = coupling.cell_forward(self.flow.cells[op[1]],
                                                self.cells[op[1]], x, jac, train)
             else:
-                x = x[:, permutation_source(op, self.flow.n_flow)]
+                x = x[:, perm[op]]
         return x, jac
 
     def frozen_forward(self, w: torch.Tensor, train: bool):

@@ -84,3 +84,43 @@ def channel_models_from_numpy(flows, params, states, dtype=torch.float64, device
     ``build_channel_flows`` returns, leaves as numpy arrays) as a tuple of
     the port's models, one per channel."""
     return tuple(from_numpy(f, p, s, dtype, device) for f, p, s in zip(flows, params, states))
+
+
+def stack_models(models):
+    """The parameters and buffers of equally built ``models``, stacked along
+    a leading run axis: ``(params, buffers)``, dicts keyed by the models'
+    ``named_parameters`` / ``named_buffers`` names."""
+    def stack(named):
+        names = [dict(named(m)) for m in models]
+        return {k: torch.stack([n[k].detach() for n in names]) for k in names[0]}
+    return (stack(lambda m: m.named_parameters()), stack(lambda m: m.named_buffers()))
+
+
+def _index_tree(tree, i):
+    if isinstance(tree, dict):
+        return {k: _index_tree(v, i) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_index_tree(v, i) for v in tree)
+    return np.asarray(tree)[i]
+
+
+def ensemble_from_numpy(flow: Flow, params_stack, bn_stack, dtype=torch.float64,
+                        device="cpu"):
+    """nf_tpu's stacked ensemble pytrees (what its ``stack_ensemble``
+    returns, leaves as numpy arrays with a leading run axis) as the port's
+    ``(params, buffers)`` stacks (:func:`stack_models`)."""
+    first = params_stack[0]["bn_in"]["scale"]
+    return stack_models([from_numpy(flow, _index_tree(params_stack, r), _index_tree(bn_stack, r),
+                                    dtype, device) for r in range(np.shape(first)[0])])
+
+
+def ensemble_member(flow: Flow, stacked, i) -> FlowModel:
+    """Run ``i`` of a ``(params, buffers)`` stack as a FlowModel, on the
+    stack's device and dtype (to carry into a manager, load its
+    ``state_dict`` into the manager's model)."""
+    params, buffers = stacked
+    leaf = next(iter(params.values()))
+    model = FlowModel(flow, torch.Generator(device=leaf.device).manual_seed(0), leaf.dtype,
+                      leaf.device)
+    model.load_state_dict({k: v[i] for k, v in {**params, **buffers}.items()})
+    return model

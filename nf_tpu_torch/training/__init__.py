@@ -1,4 +1,5 @@
-from nf_tpu_torch.training import manager, multichannel, optimizers, unweight
+from nf_tpu_torch.training import (ensemble, manager, metrics, multichannel, optimizers,
+                                   unweight, vegas)
 from nf_tpu_torch.training.manager import (
     AffineManager,
     BasicManager,
@@ -7,10 +8,13 @@ from nf_tpu_torch.training.manager import (
 )
 
 __all__ = [
+    "ensemble",
     "manager",
+    "metrics",
     "multichannel",
     "optimizers",
     "unweight",
+    "vegas",
     "BasicManager",
     "AffineManager",
     "PWLinManager",

@@ -29,15 +29,24 @@ effective-sample fraction E[w]^2 / E[w^2] instead of the least loss.
 ``integrate(method="qmc")`` is randomized quasi-Monte-Carlo
 (:mod:`nf_tpu_torch.utils.qmc`).
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh``,
-``resume_from``, ``epochs_per_sync`` other than 1, and ``logdir`` / ``run``
-logging and checkpoints.
+Run logging and checkpoints follow nf_tpu: a ``run`` object receives
+``run.log_scalar(name, value, step)`` calls (:mod:`nf_tpu_torch.training
+.metrics`); with ``log`` and ``logdir`` the trainer writes ``torch_int`` at
+the start and ``torch`` (the best model and its metadata) at the end into
+``logdir/<run._id>``.  :meth:`BasicManager.save_training_state` and
+``resume_from`` stop and continue a run exactly.  All files are
+``torch.save`` files written by :mod:`nf_tpu_torch.utils.checkpoint`; nf_tpu
+cannot read them, nor the port nf_tpu's.
+
+Not ported yet, and refused with ``NotImplementedError``: ``mesh`` and
+``epochs_per_sync`` other than 1.
 """
 
 from __future__ import annotations
 
 import copy
 import math
+import os
 import time
 
 import numpy as np
@@ -46,6 +55,7 @@ import torch
 from nf_tpu_torch.flows import factory
 from nf_tpu_torch.flows import sampling as fsampling
 from nf_tpu_torch.ops import pwquad_train
+from nf_tpu_torch.utils import checkpoint
 
 
 def _not_ported(name, value):
@@ -276,10 +286,7 @@ class BasicManager:
         """
         for name, value, ported in (
                 ("mesh", mesh, mesh is None),
-                ("resume_from", resume_from, resume_from is None),
-                ("epochs_per_sync", epochs_per_sync, epochs_per_sync == 1),
-                ("logdir", logdir, logdir is None),
-                ("run", run, run is None)):
+                ("epochs_per_sync", epochs_per_sync, epochs_per_sync == 1)):
             if not ported:
                 _not_ported(name, value)
         if bn_stats not in ("batch", "stale"):
@@ -291,6 +298,9 @@ class BasicManager:
             return
         if seed is not None:
             self._gen.manual_seed(seed)
+        if log and logdir is not None:
+            # reference manager.py:101-109: the stub checkpoint at the start
+            self._save_checkpoint_stub(logdir, run)
 
         model = self._model
         n_flow = self.n_flow
@@ -300,46 +310,33 @@ class BasicManager:
         n_minibatches = int(batch_size / mini_batch_size)
         batch_size = batch_size - (batch_size % mini_batch_size)
 
+        rs = None
         epoch_offset = epoch_start
-        integ = np.zeros(epochs + 1)
-        err = np.zeros(epochs + 1)
-
-        # ---- PHASE A: initial estimate on raw uniform points
-        # (reference manager.py:139-167)
-        with torch.no_grad():
-            zero = torch.zeros((), dtype=self.dtype, device=self.device)
-            maxf, best_loss, best_var, integ0, err0 = zero, zero, zero, zero, zero
-            for _ in range(n_flow):
-                w = self._uniform((2 * mini_batch_size, n_flow))
-                fres = f(w)
-                integ0 = integ0 + torch.sum(fres) / (n_flow * 2 * mini_batch_size)
-                err0 = err0 + torch.var(fres) / n_flow
-                maxf = torch.maximum(maxf, torch.max(fres))
-                if loss_mode == "var":
-                    best_loss = best_loss + torch.var(fres / maxf) / n_flow
-                else:
-                    best_loss = best_loss + torch.mean(fres ** 2) / n_flow
-                best_var = best_var + torch.var((fres / maxf) ** 2) / 2 * mini_batch_size
-            integ[0], err[0], self.best_loss, self.best_var = \
-                torch.stack([integ0, err0, best_loss, best_var]).tolist()
-
-            # ---- diagnostics + initial best-model snapshot
-            # (reference manager.py:170-196); moves the BN buffers
-            if save_best or log:
-                x, jacv = model(w, True)
-                self.varJ = float(torch.mean(jacv ** 2))
-                # torch KLDivLoss default 'mean' divides by numel = B * n_flow
-                self.DKL = float(torch.sum(w * (torch.log(w) - torch.log(x + 1e-45)))
-                                 / w.numel())
-                self.best_model = copy.deepcopy(model)
-                self.best_epoch = 0
-                self.best_time = 0
-                self.best_loss_rel = 1.0
-                self.best_func_count = 2 * batch_size * n_flow
-                self.history = []
-        self.int_loss = self.best_loss
+        if resume_from is not None:
+            rs = resume_from if isinstance(resume_from, dict) \
+                else self.load_training_state(resume_from)
+            epoch_offset = int(rs["meta"]["epoch_offset"])
+        # the histories span every epoch since the first run's start
+        # (nf_tpu manager.py:332-344)
+        need = epoch_start + epochs - epoch_offset + 1
+        integ = np.zeros(need)
+        err = np.zeros(need)
+        if rs is None:
+            maxf = self._phase_a(f, mini_batch_size, batch_size, loss_mode,
+                                 save_best or log, integ, err)
+            if run is not None and log:
+                run.log_scalar("training.int_loss", self.best_loss, 0)
+            self.int_loss = self.best_loss
+        else:
+            # exact resume: skip phase A, restore everything
+            maxf = self._restore(rs)
+            n_old = min(len(rs["integ"]), need)
+            integ[:n_old] = np.asarray(rs["integ"])[:n_old]
+            err[:n_old] = np.asarray(rs["err"])[:n_old]
 
         optimizer = optimizer_object(model.parameters())
+        if rs is not None:
+            optimizer.load_state_dict(rs["opt"])
         epoch_cfg = {"f": f, "maxf": maxf, "loss_mode": loss_mode, "pathwise": pathwise,
                      "plan": pwquad_train.TrainPlan(self._flow) if bn_stats == "stale" else None,
                      # the refresh's bounded batch (nf_tpu manager.py:464)
@@ -350,9 +347,12 @@ class BasicManager:
         # (reference manager.py:212-327)
         sm = {"stale_save": 1000.0, "preburner": preburn_time > 0,
               "counter": 0, "last_loss": 1000.0}
+        self.best_ess = -math.inf
+        if rs is not None:
+            sm = dict(rs["meta"]["sm"])
+            self.best_ess = rs["meta"]["best_ess"]
         t_start = time.time()
         epochs_end = epoch_start + epochs
-        self.best_ess = -math.inf
 
         pbar = None
         if pretty_progressbar:
@@ -382,6 +382,9 @@ class BasicManager:
                     "elapsed_s": elapsed,
                     "eta_s": elapsed / max(done, 1) * (epochs - done),
                 })
+            if run is not None and log:
+                run.log_scalar("training.loss", loss, i)
+                run.log_scalar("training.loss_rel", loss / self.int_loss, i)
 
             improved = ess > self.best_ess if select_best_by == "ess" else loss < self.best_loss
             if (save_best or log) and improved and not sm["preburner"]:
@@ -427,6 +430,11 @@ class BasicManager:
 
         if pbar is not None:
             pbar.close()
+        # the resumable state (save_training_state)
+        self._optimizer = optimizer
+        self._maxf = maxf
+        self._sm_state = dict(sm)
+        self._epoch_offset = epoch_offset
         self._last_epoch = i
         self._bench = (optimizer, epoch_cfg, n_minibatches, mini_batch_size, batch_size)
 
@@ -462,9 +470,52 @@ class BasicManager:
         self._integ_hist = integ
         self._err_hist = err
 
+        if run is not None and integrate:
+            run.log_scalar("training.integ", self.integ_tot, 0)
+            run.log_scalar("training.err", self.err_tot, 0)
+        if log and logdir is not None:
+            self._save_checkpoint(logdir, run)
+
         if integrate:
             return (self.integ_tot, self.err_tot)
         return (0, 0)
+
+    def _phase_a(self, f, mini_batch_size, batch_size, loss_mode, snapshot, integ, err):
+        """The initial estimate on raw uniform points (reference
+        manager.py:139-167) into ``integ[0]``, ``err[0]`` and the manager's
+        ``best_loss`` / ``best_var``; with ``snapshot``, the diagnostics and
+        the initial best-model snapshot (reference manager.py:170-196),
+        which move the BN buffers.  Returns ``maxf`` (a device scalar)."""
+        n_flow, model = self.n_flow, self._model
+        with torch.no_grad():
+            zero = torch.zeros((), dtype=self.dtype, device=self.device)
+            maxf, best_loss, best_var, integ0, err0 = zero, zero, zero, zero, zero
+            for _ in range(n_flow):
+                w = self._uniform((2 * mini_batch_size, n_flow))
+                fres = f(w)
+                integ0 = integ0 + torch.sum(fres) / (n_flow * 2 * mini_batch_size)
+                err0 = err0 + torch.var(fres) / n_flow
+                maxf = torch.maximum(maxf, torch.max(fres))
+                if loss_mode == "var":
+                    best_loss = best_loss + torch.var(fres / maxf) / n_flow
+                else:
+                    best_loss = best_loss + torch.mean(fres ** 2) / n_flow
+                best_var = best_var + torch.var((fres / maxf) ** 2) / 2 * mini_batch_size
+            integ[0], err[0], self.best_loss, self.best_var = \
+                torch.stack([integ0, err0, best_loss, best_var]).tolist()
+            if snapshot:
+                x, jacv = model(w, True)
+                self.varJ = float(torch.mean(jacv ** 2))
+                # torch KLDivLoss default 'mean' divides by numel = B * n_flow
+                self.DKL = float(torch.sum(w * (torch.log(w) - torch.log(x + 1e-45)))
+                                 / w.numel())
+                self.best_model = copy.deepcopy(model)
+                self.best_epoch = 0
+                self.best_time = 0
+                self.best_loss_rel = 1.0
+                self.best_func_count = 2 * batch_size * n_flow
+                self.history = []
+        return maxf
 
     def benchmark_train_step(self, reps=5):
         """Time the last training run's epoch, warm: ``(seconds_per_epoch,
@@ -611,6 +662,121 @@ class BasicManager:
                     eval_mean, self.n_flow, nitn, neval, base,
                     dtype=np.float64 if self.dtype == torch.float64 else np.float32)
         return (sig, sig_err)
+
+    # -- checkpoints (nf_tpu manager.py:1186-1311; the reference only saves,
+    #    manager.py:358-369) --------------------------------------------------
+
+    @staticmethod
+    def _ckpt_dir(logdir, run=None):
+        """The reference's layout (manager.py:88-98): ``logdir/<run._id>``
+        when a Sacred-style run object with an id is attached, else
+        ``logdir``."""
+        if run is not None and getattr(run, "_id", None) is not None:
+            return os.path.join(logdir, str(run._id))
+        return logdir
+
+    def _save_checkpoint_stub(self, logdir, run=None):
+        """Write ``torch_int``, the initial model saved before any epoch runs
+        (reference manager.py:101-109), so sweep tooling aimed at the
+        reference layout finds the same files at the same times."""
+        try:
+            d = self._ckpt_dir(logdir, run)
+            os.makedirs(d, exist_ok=True)
+            model = self.best_model if self.best_model is not None else self._model
+            checkpoint.save(os.path.join(d, "torch_int"),
+                            {"model": model.state_dict(), "meta": {}})
+        except Exception as e:  # the reference's guard
+            print(f"Checkpoint save not possible: {e}")
+
+    def _save_checkpoint(self, logdir, run=None):
+        """Write ``torch``: the best model and nf_tpu's metadata.  nf_tpu
+        also writes the same payload as ``checkpoint.msgpack``, the name of
+        its flax file; the port writes no file under that name."""
+        try:
+            d = self._ckpt_dir(logdir, run)
+            os.makedirs(d, exist_ok=True)
+            checkpoint.save(os.path.join(d, "torch"), {
+                "model": self.best_model.state_dict(),
+                "meta": {
+                    "best_epoch": self.best_epoch,
+                    "best_loss": float(self.best_loss),
+                    "int_loss": float(self.int_loss),
+                    "best_loss_rel": float(self.best_loss_rel),
+                    "best_func_count": float(self.best_func_count),
+                    "integ": float(self.integ_tot),
+                    "err": float(self.err_tot),
+                },
+            })
+        except Exception as e:  # the reference's guard
+            print(f"Checkpoint save not possible: {e}")
+
+    def save_training_state(self, path):
+        """Write the whole training state of the last run for an exact
+        resume (``resume_from=path`` with ``epoch_start`` = the epochs run):
+        the model and the best model (parameters and BN buffers), Adamax's
+        state, the generator's state, ``maxf``, the integral and error
+        histories and nf_tpu's metadata, the state machine included.  The
+        plan and dtype are stored, and a resume into a manager built
+        otherwise raises."""
+        checkpoint.save(path, {
+            "plan": repr(self._flow),
+            "dtype": str(self.dtype),
+            "model": self._model.state_dict(),
+            "best_model": self.best_model.state_dict(),
+            "opt": self._optimizer.state_dict(),
+            "generator": self._gen.get_state(),
+            "maxf": self._maxf,
+            "integ": self._integ_hist,
+            "err": self._err_hist,
+            "meta": {
+                "best_loss": float(self.best_loss),
+                "best_var": float(self.best_var),
+                "best_ess": float(self.best_ess),
+                "int_loss": float(self.int_loss),
+                "best_loss_rel": float(self.best_loss_rel),
+                "best_epoch": int(self.best_epoch),
+                "best_time": float(getattr(self, "best_time", 0.0)),
+                "best_func_count": float(self.best_func_count),
+                "history": [float(h) for h in self.history],
+                "varJ": getattr(self, "varJ", None),
+                "DKL": getattr(self, "DKL", None),
+                "sm": dict(self._sm_state),
+                "last_epoch": int(self._last_epoch),
+                "epoch_offset": int(self._epoch_offset),
+            },
+        })
+
+    @staticmethod
+    def load_training_state(path):
+        """Read a :meth:`save_training_state` file (to pass as
+        ``resume_from``)."""
+        return checkpoint.load(path, None)
+
+    def _restore(self, rs):
+        """Load a training state into this manager, built as the one that
+        saved it (else ``ValueError``); returns ``maxf``."""
+        for key, mine in (("plan", repr(self._flow)), ("dtype", str(self.dtype))):
+            if rs[key] != mine:
+                raise ValueError(f"resume_from was saved with another {key}: "
+                                 f"{rs[key]} != {mine}")
+        meta = rs["meta"]
+        self._model.load_state_dict(rs["model"])
+        self.best_model = copy.deepcopy(self._model)
+        self.best_model.load_state_dict(rs["best_model"])
+        self._gen.set_state(rs["generator"])
+        for name in ("best_loss", "best_var", "int_loss", "varJ", "DKL", "best_epoch",
+                     "best_time", "best_loss_rel", "best_func_count"):
+            setattr(self, name, meta[name])
+        self.history = list(meta["history"])
+        return torch.as_tensor(rs["maxf"], dtype=self.dtype, device=self.device)
+
+    def load_checkpoint(self, path):
+        """Load a ``torch`` / ``torch_int`` checkpoint into the model and the
+        best model; returns its metadata (the reference has no restore)."""
+        data = checkpoint.load(path, {"model": None, "meta": None})
+        self._model.load_state_dict(data["model"])
+        self.best_model = copy.deepcopy(self._model)
+        return data["meta"]
 
     # -- warm-up forward (reference manager.py:592-598) ----------------------
 

@@ -1,3 +1,3 @@
-from nf_tpu_torch.utils import checkpoint, lhe, qmc
+from nf_tpu_torch.utils import checkpoint, experiment, lhe, profiling, qmc, sweep
 
-__all__ = ["checkpoint", "lhe", "qmc"]
+__all__ = ["checkpoint", "experiment", "lhe", "profiling", "qmc", "sweep"]

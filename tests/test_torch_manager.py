@@ -223,13 +223,35 @@ def test_early_stop_runs_the_tail_integration():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": object()}, {"resume_from": "state.msgpack"}, {"epochs_per_sync": 4},
-    {"epochs_per_sync": "auto"}, {"logdir": "runs"}, {"run": object()},
+    {"mesh": object()}, {"epochs_per_sync": 4}, {"epochs_per_sync": "auto"},
 ])
 def test_unported_arguments_raise(manager, kwargs):
     with pytest.raises(NotImplementedError, match=next(iter(kwargs))):
         manager._train_variance_forward_seq(camel_t, toptim.adamax(1e-3), epochs=1,
                                             batch_size=100, mini_batch_size=100, **kwargs)
+
+
+@pytest.mark.parametrize("arg", ["resume_from", "logdir", "run"])
+def test_logging_and_resume_arguments_work(tmp_path, arg):
+    """The arguments the trainer once refused: each is accepted and does
+    its work (tests/test_torch_resume.py holds them against nf_tpu)."""
+    from nf_tpu_torch.training.metrics import MemoryLogger
+    NF = PWQuadManager(n_flow=2, seed=0, dtype=torch.float64, device="cpu")
+    NF.create_model(2, 4, [4] * 2)
+    kw = dict(epochs=1, batch_size=100, mini_batch_size=100, pretty_progressbar=False)
+    run = MemoryLogger()
+    NF._train_variance_forward_seq(camel_t, toptim.adamax(1e-3), log=True, run=run,
+                                   logdir=str(tmp_path), **kw)
+    if arg == "resume_from":
+        NF.save_training_state(tmp_path / "state.pt")
+        NF._train_variance_forward_seq(camel_t, toptim.adamax(1e-3), epoch_start=1,
+                                       resume_from=tmp_path / "state.pt", **kw)
+        assert len(NF.history) == 2 and len(NF._integ_hist) == 3
+    elif arg == "logdir":
+        assert sorted(p.name for p in tmp_path.iterdir()) == ["torch", "torch_int"]
+    else:
+        assert [s for s, _ in run.scalars["training.loss"]] == [0]
+        assert run.scalars["training.int_loss"] == [(0, NF.int_loss)]
 
 
 def test_unported_endpoint_options_raise(manager):
