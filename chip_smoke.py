@@ -44,12 +44,18 @@ checkpoints and a resume, stratified sampling, unweighting with global and
 per-channel maxima, partial unweighting written to an LHE file and read
 back), both integrals against uniform MC of the fixed-alpha integrand.
 Phase 15 drives the experiment side: stop and resume of both trainers
-against the uninterrupted run (camel-2D and the flagship), the run logger
-and checkpoints, ``run_sweep`` over ``pro`` (sequential, and in a child
-process on the card) and ``prov`` (a thread), VEGAS on the card against the
-CPU, the ensemble (8 seeds, its best flow through the sampler, 64 runs, a
-group's epoch loop with host syncs made errors, float64 against the CPU) and
-the profiling helpers.
+against the uninterrupted run (camel-2D and the flagship, bit for bit), the
+run logger and checkpoints, ``run_sweep`` over ``pro`` (sequential, and in a
+child process on the card) and ``prov`` (a thread), VEGAS on the card
+(repeated bit for bit) against the CPU, the ensemble (8 seeds, its best flow
+through the sampler, 64 runs, a group's epoch loop with host syncs made
+errors, float64 against the CPU) and the profiling helpers.
+Phase 16 drives data parallelism (``nf_tpu_torch.parallel``): on a world of
+one over NCCL, ``sample``, ``integrate``, both trainers, unweighting and the
+mixture under ``mesh=`` against their single-device runs (bit for bit where
+the arithmetic is the same), the sampler's per-rank counter offsets against
+one launch, two ranks on the card over gloo against one process, and the
+paired times of the mesh paths and the collectives a minibatch makes.
 Prints one ``{"kernels": [...]}`` line;
 the last line of standard output is ``{"ok": true, "device": {...}}``; any
 failed check exits non-zero before it is printed.  Exits non-zero at once
@@ -844,13 +850,13 @@ def phase14(dev, card, gen, hold_train, perturb_bn):
         worst = max(float(np.max(np.abs(res["history"][k] - full["history"][k])
                                  / np.maximum(np.abs(full["history"][k]), 1e-30)))
                     for k in full["history"])
-        why = "" if same else (" (the nondeterministic candidates: CUDA's backward of "
-                               "torch.gather and of the flows' column indexing, which may "
-                               "accumulate with atomicAdd)")
+        same_params = [state_digest(m) for m in full["params"]] == \
+            [state_digest(m) for m in res["params"]]
         print(f"phase14 resume (2 x 2^17, 4 epochs in chunks of 2, stopped after 1): history "
               f"{'bit-identical' if same else 'not bit-identical'} to the uninterrupted run, "
-              f"max rel diff {worst:.3e}{why}")
-        check(worst <= 1e-3, "resumed history within 1e-3 of the uninterrupted run")
+              f"max rel diff {worst:.3e}; flows {'bit-identical' if same_params else 'differ'}")
+        check(same and same_params, "resumed history and flows bit-identical to the "
+              "uninterrupted run")
 
         # stratified sample at the best flows (the training batch): the
         # integral and ESS, and the cross section on and off the Z in (01)
@@ -1085,21 +1091,17 @@ def phase15(dev, card, kind, hold_train):
               f"|d| {param_err:.3e}; best/live digests {digests}; launches sampler/fwd/bwd "
               f"{launched} {card}")
         check(len(NF.history) == len(whole.history) == 2 * epochs, f"{tag} resumed history length")
+        check(NF.history == whole.history and np.array_equal(NF._integ_hist, whole._integ_hist)
+              and np.array_equal(NF._err_hist, whole._err_hist)
+              and digests[0] == digests[1] and digests[2] == digests[3],
+              f"{tag}: the resume equals the uninterrupted run bit for bit")
         if bn_stats == "stale":
-            check(NF.history == whole.history and np.array_equal(NF._integ_hist, whole._integ_hist)
-                  and np.array_equal(NF._err_hist, whole._err_hist)
-                  and digests[0] == digests[1] and digests[2] == digests[3],
-                  f"{tag}: the resume equals the uninterrupted run bit for bit")
             n_mb = batch // mini
             refreshes = (2 * epochs - 1) // 4 + 1 + (epochs - 1) // 4 + 1 + (epochs - 1) // 4 + 1
             check(launched == (0, 4 * epochs * n_mb + refreshes, 4 * epochs * n_mb),
                   f"{tag} launched sampler/fwd/bwd {launched}")
-        else:
-            # CUDA's indexing backward accumulates with atomics (as in phase 14)
-            check(hist_err <= 1e-3 and integ_err <= 1e-3,
-                  f"{tag}: the resume within 1e-3 of the uninterrupted run")
-    print("phase15 check 1: the stale resumes equal the uninterrupted runs bit for bit (camel "
-          "and flagship); the batch resume within 1e-3 (atomics in the indexing backward)")
+    print("phase15 check 1: the resumes equal the uninterrupted runs bit for bit (camel stale "
+          "and batch, flagship stale)")
     for tag in ("camel stale", "camel batch"):
         NF = resumed[tag][1]
         before = counts()
@@ -1189,6 +1191,9 @@ def phase15(dev, card, kind, hold_train):
           f"{v_sdev:.2e} (exact {exact:.7f}) in {vegas_s * 1e3:.2f} ms, "
           f"{vegas_s * 1e2:.3f} ms per iteration (host clock, one read at the end) {card}")
     check(gate(v_mean, v_sdev), "VEGAS within 5 sdev + 1%")
+    again = vegas.VegasIntegrator(2, n_bins=50, seed=0, device=dev)
+    check(again.run(camel, nitn=10, neval=P15_VEGAS_NEVAL) == (v_mean, v_sdev)
+          and torch.equal(again.edges, integ.edges), "VEGAS repeated bit for bit on the card")
     cpu_gen = torch.Generator().manual_seed(21)
     draws = [torch.rand((P15_VEGAS_CHECK_N, 2), generator=cpu_gen, dtype=torch.float64)
              for _ in range(6)]
@@ -1205,8 +1210,9 @@ def phase15(dev, card, kind, hold_train):
     finally:
         vegas._uniform = hook
     edge_err = max(float((a - b).abs().max()) for a, b in zip(*sides))
-    print(f"phase15 check 4: VEGAS within its gate; float64 edges on the card against the CPU "
-          f"on the same draws, max |d| over 6 iterations {edge_err:.3e}")
+    print(f"phase15 check 4: VEGAS within its gate and repeated bit for bit; float64 edges on "
+          f"the card against the CPU on the same draws, max |d| over 6 iterations "
+          f"{edge_err:.3e}")
     check(edge_err <= 1e-10, "VEGAS float64 edges cuda vs cpu within 1e-10")
 
     # ---- check 5: the ensemble
@@ -1351,6 +1357,294 @@ def phase15(dev, card, kind, hold_train):
     tmp_dir.cleanup()
     print(f"phase15: {time.perf_counter() - t_phase:.1f} s {card}")
     return launches, errors
+
+
+# ---- phase 16: data parallelism on the card (nf_tpu_torch.parallel and the
+# entry points' mesh=): a world of one on NCCL against the single-device
+# runs, the sampler's rank streams, and two ranks on the one card over gloo
+P16_SAMPLE_N, P16_INTEG = 1 << 24, (8, 1 << 21)     # phase 5's sizes
+P16_CAMEL = (10000, 20)                             # batch, epochs
+P16_FLAG = (1 << 20, 1 << 18, 4)                    # batch, minibatch, epochs (phase 15)
+P16_UNW = (1 << 20, 1 << 22, 0.999)                 # phase 12: events, batch, quantile
+P16_MC = (1 << 17, 1 << 16, 4)                      # phase 14's resume: per channel, mb, epochs
+P16_STREAM_N, P16_RANKS = 1 << 21, 4
+P16_GLOO_N, P16_GLOO_BATCH, P16_GLOO_EPOCHS = 1 << 21, 10000, 2
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def train_camel(dev, bn_stats, epochs, batch, mesh=None, **extra):
+    """Phase 16's camel run: ``create_model(2, 4, [3] * 3)`` from seed 0."""
+    from nf_tpu_torch import PWQuadManager
+    from nf_tpu_torch.training import optimizers
+    NF = PWQuadManager(n_flow=2, seed=0, device=dev)
+    NF.create_model(2, 4, [3] * 3)
+    kw = dict(log=False, batch_size=batch, mini_batch_size=batch, preburn_time=5,
+              kill_counter=1000, integrate=True, pretty_progressbar=False, bn_stats=bn_stats,
+              stats_every=4)
+    kw.update(extra)
+    NF._train_variance_forward_seq(camel, optimizers.adamax(2e-3, 1e-4), epochs=epochs,
+                                   mesh=mesh, **kw)
+    return NF
+
+
+def dp_gloo_rank(rank, port, device, state_path, out_path):
+    """One of phase 16's two ranks on the one card (``device``): a gloo
+    process group over its tensors, ``dp_sample``, ``dp_integrate`` and the
+    stale trainer on the main-path model; rank 0 writes the results."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from nf_tpu_torch import PWQuadManager
+    from nf_tpu_torch.parallel import dp_integrate, dp_sample, make_mesh
+
+    if device == "cuda":
+        torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}", world_size=2,
+                            rank=rank, timeout=datetime.timedelta(seconds=60))
+    mesh = make_mesh(device=device)
+    NF = PWQuadManager(n_flow=2, seed=0, device=device)
+    NF.create_model(2, 4, [3] * 3)
+    NF.best_model.load_state_dict(torch.load(state_path, weights_only=True))
+    x, jac = dp_sample(NF._flow, NF.best_model, mesh, P16_GLOO_N, seed=5)
+    integ = dp_integrate(NF._flow, NF.best_model, camel, mesh, 8, P16_GLOO_N, seed=6)
+    T = train_camel(device, "stale", P16_GLOO_EPOCHS, P16_GLOO_BATCH, mesh, preburn_time=0)
+    if rank == 0:
+        torch.save({"x": x.cpu(), "jac": jac.cpu(), "integ": integ, "history": T.history,
+                    "integ_hist": T._integ_hist, "model": {k: v.cpu() for k, v in
+                                                            T._model.state_dict().items()}},
+                   out_path)
+    dist.destroy_process_group()
+
+
+def phase16(dev, card, NF):
+    """Data parallelism on the card, checks 1-6 (``phase16 check N``).
+    ``NF`` is phase 5's trained camel manager.  Returns the kernels'
+    launches (sampler, forward, backward) over the entry points of checks
+    1, 3 and 4."""
+    import collections
+    import multiprocessing
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from nf_tpu_torch import PWQuadManager
+    from nf_tpu_torch.ops import pwquad_sampler as ps
+    from nf_tpu_torch.ops import pwquad_train as pt
+    from nf_tpu_torch.parallel import initialize_distributed
+    from nf_tpu_torch.parallel import sampling as psampling
+    from nf_tpu_torch.training import multichannel as mc
+    from nf_tpu_torch.training import optimizers
+    from nf_tpu_torch.training.unweight import generate_unweighted
+
+    exact = camel_exact()
+    t_phase = time.perf_counter()
+    mesh = initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0, device="cuda", timeout=300)
+    check(dist.get_backend() == "nccl" and mesh.size() == 1 and mesh.mesh_dim_names == ("dp",),
+          "phase 16's world of one is an NCCL dp mesh")
+    print(f"phase16: world of one on {dist.get_backend()}, mesh {mesh}")
+
+    def equal_models(a, b):
+        return state_digest(a) == state_digest(b)
+
+    ps.LAUNCHES = pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = 0
+    torch.cuda.synchronize()
+    # ---- check 1: sample and integrate under mesh= against the single device
+    flow, best = NF._flow, NF.best_model
+    got, ref = NF.sample(P16_SAMPLE_N, seed=16, mesh=mesh), NF.sample(P16_SAMPLE_N, seed=16)
+    check(all(torch.equal(a, b) for a, b in zip(got, ref)), "sample(2^24, mesh=) bit-identical")
+    del got, ref
+    nitn, neval = P16_INTEG
+    integ = {}
+    for method in (None, "qmc"):
+        integ[method] = [NF.integrate(camel, nitn, neval, seed=17, method=method, mesh=m)
+                         for m in (mesh, None)]
+        (sig, err), (sig1, err1) = integ[method]
+        print(f"phase16 integrate({nitn}, 2^21, method={method}, mesh=) = {sig:.7f} +- "
+              f"{err:.3e}, single device {sig1:.7f} +- {err1:.3e} (rel diff "
+              f"{abs(sig - sig1) / sig1:.2e}, {abs(err - err1) / err1:.2e}; exact {exact:.7f})")
+        check(abs(sig - exact) <= 5 * err + 0.01 * exact, "mesh integral within 5 err + 1%")
+    check(integ["qmc"][0] == integ["qmc"][1], "integrate(qmc, mesh=) equals the single device")
+    # float64 sums of the iterations against float32 torch.mean / torch.var
+    (sig, err), (sig1, err1) = integ[None]
+    check(abs(sig - sig1) <= 1e-5 * sig1 and abs(err - err1) <= 1e-4 * err1,
+          "integrate(mesh=) within roundoff of the single device")
+    print("phase16 check 1: sample(2^24, mesh=) bit-identical to sample(2^24); integrate(8, "
+          "2^21, mesh=) within roundoff (and qmc equal) on the same seeds, in the gate")
+
+    # ---- check 3: both trainers under mesh= against mesh=None, bit for bit
+    batch, epochs = P16_CAMEL
+    runs, bench = {}, {}
+    counted = collections.Counter()
+    for bn_stats in ("batch", "stale"):
+        before = (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES)
+        runs[bn_stats] = [train_camel(dev, bn_stats, epochs, batch, m) for m in (mesh, None)]
+        launched = (pt.FWD_LAUNCHES - before[0], pt.BWD_LAUNCHES - before[1])
+        a, b = runs[bn_stats]
+        check(a.history == b.history and np.array_equal(a._integ_hist, b._integ_hist)
+              and (a.integ_tot, a.err_tot) == (b.integ_tot, b.err_tot)
+              and equal_models(a.best_model, b.best_model) and equal_models(a._model, b._model),
+              f"camel {bn_stats} trainer under mesh= bit-identical to mesh=None")
+        want = (0, 0) if bn_stats == "batch" else \
+            (2 * (epochs + (epochs - 1) // 4 + 1), 2 * epochs)
+        check(launched == want, f"camel {bn_stats} launched fwd/bwd {launched}, not {want}")
+        print(f"phase16 camel {bn_stats} trainer, batch {batch}, {epochs} epochs: mesh= "
+              f"bit-identical to mesh=None (integral {a.integ_tot:.7f} +- {a.err_tot:.2e}); "
+              f"fwd/bwd launches {launched}")
+    fb, fmb, fep = P16_FLAG
+    before = (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES)
+    flag = []
+    for m in (mesh, None):
+        F = PWQuadManager(n_flow=10, seed=0, device=dev)
+        F.create_model(8, 8, [16, 16], final_rank=4)
+        F._train_variance_forward_seq(gauss10, optimizers.adamax(2e-3, 1e-4), log=False,
+                                      batch_size=fb, mini_batch_size=fmb, epochs=fep,
+                                      preburn_time=0, kill_counter=1000, integrate=False,
+                                      pretty_progressbar=False, bn_stats="stale", stats_every=4,
+                                      mesh=m)
+        flag.append(F)
+    launched = (pt.FWD_LAUNCHES - before[0], pt.BWD_LAUNCHES - before[1])
+    n_mb = fb // fmb
+    want = (2 * (fep * n_mb + (fep - 1) // 4 + 1), 2 * fep * n_mb)
+    check(flag[0].history == flag[1].history and equal_models(flag[0]._model, flag[1]._model),
+          "flagship stale trainer under mesh= bit-identical to mesh=None")
+    check(launched == want, f"flagship stale launched fwd/bwd {launched}, not {want}")
+    print(f"phase16 flagship stale trainer, 2^20 in 4 x 2^18, {fep} epochs: mesh= bit-identical "
+          f"to mesh=None; fwd/bwd launches {launched}")
+    print("phase16 check 3: both trainers under mesh= equal their mesh=None runs bit for bit "
+          "(camel batch and stale, flagship stale), launch counts exact")
+
+    # ---- check 4: unweighting and the mixture under mesh=
+    n_events, unw_batch, q = P16_UNW
+    unw = [generate_unweighted(flow, best, camel, torch.Generator(device=dev).manual_seed(24),
+                               n_events=n_events, batch=unw_batch, wmax_quantile=q,
+                               partial_unweight=True, mesh=m, compact=False)
+           for m in (mesh, None)]
+    check(np.array_equal(unw[0][0], unw[1][0]) and np.array_equal(unw[0][1], unw[1][1])
+          and unw[0][2] == unw[1][2], "generate_unweighted(mesh=) equals mesh=None")
+    channels, me = mc_physics()
+    per_channel, mc_mb, mc_epochs = P16_MC
+    models = mc.build_channel_flows(torch.Generator(device=dev).manual_seed(0), channels, 4, 16,
+                                    [32] * 2, final_rank=4, device=dev)
+    mix = [mc.train_multichannel(channels, models, me, E_MC, optimizers.adamax(5e-3, 1e-4),
+                                 torch.Generator(device=dev).manual_seed(3), alphas=[0.5, 0.5],
+                                 batch_per_channel=per_channel, mini_batch_per_channel=mc_mb,
+                                 epochs=mc_epochs, epochs_per_call=2, loss_mode="kl", mesh=m,
+                                 **ZZ_CUTS)
+           for m in (mesh, None)]
+    check(all(np.array_equal(mix[0]["history"][k], mix[1]["history"][k])
+              for k in mix[1]["history"])
+          and all(equal_models(a, b) for a, b in zip(mix[0]["params"], mix[1]["params"])),
+          "train_multichannel(mesh=) equals mesh=None")
+    torch.cuda.synchronize()
+    launches = (ps.LAUNCHES, pt.FWD_LAUNCHES, pt.BWD_LAUNCHES)
+    print(f"phase16 check 4: generate_unweighted(2^20 events, batch 2^22, quantile 0.999, "
+          f"partial, mesh=) equals mesh=None ({len(unw[0][0])} events, eff "
+          f"{unw[0][2]['eff']:.5f}); train_multichannel(2 x 2^17, {mc_epochs} epochs, mesh=) "
+          f"equals mesh=None (ess {mix[0]['history']['ess'][-1]:.5f})")
+    print(f"phase16: launches over checks 1, 3 and 4, sampler/fwd/bwd {launches}")
+    check(all(n > 0 for n in launches), "phase 16's main path launched every kernel")
+
+    # ---- check 2: the rank streams on the kernel itself
+    NF_f = PWQuadManager(n_flow=10, seed=4, device=dev)
+    NF_f.create_model(8, 8, [16, 16], final_rank=4)
+    for name, model in (("camel2d_trained", best), ("flagship10d_rank4", NF_f.best_model)):
+        sampler = ps.build_sampler(model.flow, model)
+        one = sampler(77, P16_STREAM_N)
+        n_local = P16_STREAM_N // P16_RANKS
+        parts = [sampler(77, n_local, offset=r * n_local) for r in range(P16_RANKS)]
+        check(all(torch.equal(torch.cat(p), o) for p, o in zip(zip(*parts), one)),
+              f"{name}: {P16_RANKS} rank launches at offsets r 2^19 equal one launch of 2^21")
+    print(f"phase16 check 2: the sampler at offset r * 2^19, r = 0..{P16_RANKS - 1}, "
+          f"concatenated equals one launch of 2^21 bit for bit (camel, flagship)")
+
+    # ---- check 5: two ranks on the one card over gloo
+    with tempfile.TemporaryDirectory(prefix="phase16_") as tmp:
+        state_path, out_path = os.path.join(tmp, "best.pt"), os.path.join(tmp, "rank0.pt")
+        torch.save(best.state_dict(), state_path)
+        ctx = multiprocessing.get_context("spawn")
+        port = free_port()
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=dp_gloo_rank, args=(r, port, dev.type, state_path, out_path))
+                 for r in (0, 1)]
+        for p in procs:
+            p.start()
+        for p in procs:
+            p.join(timeout=240)
+        alive = [p.pid for p in procs if p.is_alive()]
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join()
+        check(not alive and all(p.exitcode == 0 for p in procs),
+              f"gloo ranks exit codes {[p.exitcode for p in procs]}, alive {alive}")
+        gloo_s = time.perf_counter() - t0
+        two = torch.load(out_path, weights_only=False)
+    x, jac = psampling.dp_sample(flow, best, None, P16_GLOO_N, seed=5)
+    check(torch.equal(two["x"], x.cpu()) and torch.equal(two["jac"], jac.cpu()),
+          "two gloo ranks' dp_sample bit-identical to one process")
+    sig1 = psampling.dp_integrate(flow, best, camel, None, 8, P16_GLOO_N, seed=6)
+    one = train_camel(dev, "stale", P16_GLOO_EPOCHS, P16_GLOO_BATCH, preburn_time=0)
+    hist_err = float(np.max(np.abs(np.asarray(two["history"]) / np.asarray(one.history) - 1)))
+    integ_err = max(abs(a / b - 1) for a, b in zip(two["integ"], sig1))
+    param_err = max(float((two["model"][k] - v.cpu()).abs().max())
+                    for k, v in one._model.state_dict().items())
+    print(f"phase16 check 5: two gloo ranks on the card in {gloo_s:.1f} s (spawn included): "
+          f"dp_sample(2^21) bit-identical to one process; dp_integrate(8, 2^21) rel diff "
+          f"{integ_err:.2e}; stale trainer {P16_GLOO_EPOCHS} epochs at {P16_GLOO_BATCH}: "
+          f"history rel diff {hist_err:.2e}, parameters max |d| {param_err:.2e}")
+    check(integ_err <= 1e-6 and hist_err <= 1e-6, "gloo ranks within 1e-6 of one process")
+
+    # ---- check 6: times, paired (CUDA events; the trainers' epochs from
+    # benchmark_train_step), and the collectives a minibatch makes
+    times = {}
+    for what, fn in (
+            ("sample(2^24)", lambda m: NF.sample(P16_SAMPLE_N, mesh=m)),
+            ("integrate(8, 2^21)", lambda m: NF.integrate(camel, nitn, neval, mesh=m))):
+        times[what] = [time_ms(lambda: fn(m)) for m in (None, mesh, mesh, None)]
+        print(f"phase16 check 6 {what}: single device {times[what][0]:.3f} / "
+              f"{times[what][3]:.3f} ms, mesh= (world of one) {times[what][1]:.3f} / "
+              f"{times[what][2]:.3f} ms {card}")
+    calls = collections.Counter()
+    originals = {name: getattr(dist, name) for name in ("all_reduce", "all_gather", "broadcast")}
+
+    def counting(name):
+        def call(*args, **kwargs):
+            calls[name] += 1
+            return originals[name](*args, **kwargs)
+        return call
+
+    for tag, (a, b) in (("camel batch", runs["batch"]), ("camel stale", runs["stale"]),
+                        ("flagship stale", flag)):
+        ms = [b.benchmark_train_step()[0] * 1e3, a.benchmark_train_step()[0] * 1e3,
+              a.benchmark_train_step()[0] * 1e3, b.benchmark_train_step()[0] * 1e3]
+        reps, k = 1, 1 if tag == "camel batch" else 4
+        n_mb = a._bench[2]
+        calls.clear()
+        for name in originals:
+            setattr(dist, name, counting(name))
+        try:
+            a.benchmark_train_step(reps=reps)
+        finally:
+            for name, fn in originals.items():
+                setattr(dist, name, fn)
+        per_mb = sum(calls.values()) / ((reps + 1) * k * n_mb)
+        print(f"phase16 check 6 {tag} epoch: mesh=None {ms[0]:.3f} / {ms[3]:.3f} ms, mesh= "
+              f"{ms[1]:.3f} / {ms[2]:.3f} ms (CUDA events); {per_mb:.2f} collectives a "
+              f"minibatch of {a._bench[3]} ({dict(calls)} over {(reps + 1) * k} epochs) {card}")
+    dist.destroy_process_group()
+    print(f"phase16: {time.perf_counter() - t_phase:.1f} s")
+    return launches
 
 
 def main():
@@ -2026,6 +2320,9 @@ def main():
     ex_launches, ex_err = phase15(dev, card, kind, hold_train)
     max_abs_err = max(max_abs_err, ex_err[0])
 
+    # ---- phase 16: data parallelism
+    dp_launches = phase16(dev, card, NF)
+
     camel_t = timings["camel2d_trained"]
     camel_tt = train_t["camel2d_trained"]
     src = "nf_tpu_torch/ops/csrc/pwquad_train.cu"
@@ -2035,7 +2332,7 @@ def main():
         "source": "nf_tpu_torch/ops/csrc/pwquad_sampler.cu",
         "replaces": "nf_tpu/ops/pwquad_sampler.py:286",
         "launches": launches + eventgen_launches + zz_launches[0] + mc_launches[0]
-        + ex_launches[0],
+        + ex_launches[0] + dp_launches[0],
         "max_abs_err": max_abs_err,
         "ms": camel_t["kernel_seeded_ms"],
         "plain_ms": camel_t["plain_rand_plus_folded_ms"],
@@ -2047,7 +2344,8 @@ def main():
         "route": "cuda",
         "source": src,
         "replaces": "nf_tpu/ops/pwquad_train.py:608",
-        "launches": train_launches[0] + zz_launches[1] + mc_launches[1] + ex_launches[1],
+        "launches": train_launches[0] + zz_launches[1] + mc_launches[1] + ex_launches[1]
+        + dp_launches[1],
         "max_abs_err": max(train_err[0], zz_err[1], mc_err[1], ex_err[1]),
         "ms": camel_tt["fwd_kernel_ms"],
         "plain_ms": camel_tt["fwd_plain_ms"],
@@ -2059,7 +2357,8 @@ def main():
         "route": "cuda",
         "source": src,
         "replaces": "nf_tpu/ops/pwquad_train.py:681",
-        "launches": train_launches[1] + zz_launches[2] + mc_launches[2] + ex_launches[2],
+        "launches": train_launches[1] + zz_launches[2] + mc_launches[2] + ex_launches[2]
+        + dp_launches[2],
         "max_abs_err": max(train_err[1], zz_err[2], mc_err[2], ex_err[2]),
         "ms": camel_tt["bwd_kernel_ms"],
         "plain_ms": camel_tt["bwd_plain_ms"],

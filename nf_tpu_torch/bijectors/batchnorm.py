@@ -33,14 +33,27 @@ MOMENTUM = 0.1
 _sink = threading.local()
 
 
-def batchnorm_train(x, scale, bias, mean, var):
+def batchnorm_train(x, scale, bias, mean, var, group=None):
     """Train-mode BatchNorm of ``x [B, n]``: ``(y, new_mean, new_var)``.
     ``y`` is normalised with the batch mean and biased variance; the new
     running statistics (detached) move ``mean`` and ``var`` by one momentum
-    step towards the batch mean and unbiased variance."""
+    step towards the batch mean and unbiased variance.
+
+    With a process ``group`` (data parallelism) the statistics are those of
+    the global batch, as nf_tpu's ``axis_name``: the batch mean and mean
+    square are averaged over the ranks (one all-reduce, differentiable) and
+    ``n`` is the local count times the world size."""
     bmean = torch.mean(x, dim=0)
-    bvar = torch.mean(x * x, dim=0) - bmean * bmean  # biased
+    sq = torch.mean(x * x, dim=0)
     n = x.shape[0]
+    if group is not None:
+        from nf_tpu_torch.parallel.dp import all_reduce_sum
+        from nf_tpu_torch.parallel.mesh import rank_and_size
+
+        size = rank_and_size(group)[1]
+        bmean, sq = (all_reduce_sum(torch.stack([bmean, sq]), group) / size).unbind(0)
+        n = n * size
+    bvar = sq - bmean * bmean  # biased
     unbiased = bvar.detach() * (n / max(n - 1, 1))
     new_mean = (1.0 - MOMENTUM) * mean + MOMENTUM * bmean.detach()
     new_var = (1.0 - MOMENTUM) * var + MOMENTUM * unbiased
@@ -70,11 +83,12 @@ class BatchNorm(nn.Module):
         self.register_buffer("mean", torch.zeros(n, **kw))
         self.register_buffer("var", torch.ones(n, **kw))
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, train: bool, group=None) -> torch.Tensor:
         if not train:
             inv = torch.reciprocal(torch.sqrt(self.var + EPS))
             return (x - self.mean) * inv * self.scale + self.bias
-        y, new_mean, new_var = batchnorm_train(x, self.scale, self.bias, self.mean, self.var)
+        y, new_mean, new_var = batchnorm_train(x, self.scale, self.bias, self.mean, self.var,
+                                                  group)
         stats = getattr(_sink, "stats", None)
         if stats is not None:
             stats[self] = (new_mean, new_var)

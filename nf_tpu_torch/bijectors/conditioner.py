@@ -69,13 +69,15 @@ class Conditioner(nn.Module):
             v = _linear(r, out, True, generator, dtype, device)
             self.final = nn.ParameterDict({"u": u["w"], "v": v["w"], "b": v["b"]})
 
-    def forward(self, x: torch.Tensor, train: bool) -> torch.Tensor:
-        h = self.bn_in(x, train)
+    def forward(self, x: torch.Tensor, train: bool, group=None) -> torch.Tensor:
+        """``group``: the process group of train-mode BatchNorm's global
+        statistics (:func:`~nf_tpu_torch.bijectors.batchnorm.batchnorm_train`)."""
+        h = self.bn_in(x, train, group)
         for lin, bn in zip(self.linears, self.bns):
             h = h @ lin["w"]
             if "b" in lin:
                 h = h + lin["b"]
-            h = torch.relu(bn(h, train))
+            h = torch.relu(bn(h, train, group))
         fin = self.final
         if "u" in fin:
             return (h @ fin["u"]) @ fin["v"] + fin["b"]

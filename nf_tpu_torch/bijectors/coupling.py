@@ -141,11 +141,12 @@ def transform(cfg, z, xB):
     return pwquad_transform(z, xB, cfg.n_bins, cfg.activation)
 
 
-def cell_forward(cfg, cond, x, jac, train: bool):
-    """One coupling cell: ``cond`` maps the pass-through dims to ``z``."""
+def cell_forward(cfg, cond, x, jac, train: bool, group=None):
+    """One coupling cell: ``cond`` maps the pass-through dims to ``z``
+    (``group``: see :meth:`Conditioner.forward`)."""
     pt = cfg.pass_through
     xA, xB = x[:, :pt], x[:, pt:]
-    yB, factor = transform(cfg, cond(xA, train), xB)
+    yB, factor = transform(cfg, cond(xA, train, group), xB)
     return torch.cat([xA, yB], dim=1), jac * factor
 
 

@@ -87,8 +87,11 @@ def permutation_source(op, n_flow: int):
 
 
 class FlowModel(nn.Module):
-    """``forward(w, train) -> (x, jac)``; train mode uses batch statistics
-    and moves the BatchNorm buffers (torch semantics, momentum 0.1)."""
+    """``forward(w, train, group=None) -> (x, jac)``; train mode uses batch
+    statistics and moves the BatchNorm buffers (torch semantics, momentum
+    0.1).  Under data parallelism ``w`` is this rank's rows and ``group``
+    the process group: train-mode statistics are then the global batch's
+    (nf_tpu's ``axis_name``).  Eval mode ignores ``group``."""
 
     def __init__(self, flow: Flow, generator: torch.Generator,
                  dtype=torch.float32, device="cpu"):
@@ -111,14 +114,15 @@ class FlowModel(nn.Module):
                 for op in self.flow.ops if op[0] != "cell"}
         return idx
 
-    def forward(self, w: torch.Tensor, train: bool):
+    def forward(self, w: torch.Tensor, train: bool, group=None):
         x = w
         jac = torch.ones(w.shape[0], dtype=w.dtype, device=w.device)
         perm = self._perm_index(w.device)
         for op in self.flow.ops:
             if op[0] == "cell":
                 x, jac = coupling.cell_forward(self.flow.cells[op[1]],
-                                               self.cells[op[1]], x, jac, train)
+                                               self.cells[op[1]], x, jac, train,
+                                               group if train else None)
             else:
                 x = x[:, perm[op]]
         return x, jac

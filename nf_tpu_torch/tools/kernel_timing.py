@@ -9,8 +9,9 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
         kernel and trainer timings of the nf_tpu_torch found in DIR (default:
         this checkout) on camel-2D, the 10-D flagship and create_model(2, 4,
         [128, 128]) (the workspace backward), the training wrappers' host
-        time per call, and a digest of the training kernels' outputs (equal
-        digests: the same bits), one JSON line
+        time per call, a digest of the training kernels' outputs (equal
+        digests: the same bits), the flagship stale epoch and the camel-2D
+        trainers' epochs at batch 10000, one JSON line
     python3 nf_tpu_torch/tools/kernel_timing.py pair DIR_A DIR_B DIR_B DIR_A
         ``time`` for each tree in turn, each in its own process (each builds
         its own kernel library), on the same card; one JSON line per tree
@@ -31,6 +32,7 @@ import os
 import statistics
 import subprocess
 import sys
+import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
@@ -111,6 +113,12 @@ def digest(*tensors):
     for t in tensors:
         h.update(t.detach().cpu().contiguous().numpy().tobytes())
     return h.hexdigest()[:16]
+
+
+def camel(x):
+    import torch
+    return (torch.exp(-((x[:, 0] - 0.75) ** 2 + (x[:, 1] - 0.75) ** 2) / 0.04)
+            + torch.exp(-((x[:, 0] - 0.25) ** 2 + (x[:, 1] - 0.25) ** 2) / 0.04))
 
 
 def ptxas(tree):
@@ -235,6 +243,20 @@ def time_tree(tree):
     sec, sps = NF.benchmark_train_step(reps=5)
     out["flagship_stale_epoch_ms"] = sec * 1e3
     out["flagship_stale_samples_per_s"] = sps
+    # the camel-2D main path's trainers at chip_smoke.py phase 5's batch:
+    # 150 epochs on the host clock (no early stop), then benchmark_train_step
+    for bn_stats in ("batch", "stale"):
+        NF = PWQuadManager(n_flow=2, seed=0, device="cuda")
+        NF.create_model(2, 4, [3] * 3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        NF._train_variance_forward_seq(
+            camel, optimizers.adamax(2e-3, 1e-4), log=False, batch_size=10000, epochs=150,
+            mini_batch_size=10000, preburn_time=20, kill_counter=1000,
+            pretty_progressbar=False, bn_stats=bn_stats)
+        torch.cuda.synchronize()
+        out[f"camel_{bn_stats}_150_epochs_host_ms"] = (time.perf_counter() - t0) * 1e3 / 150
+        out[f"camel_{bn_stats}_epoch_ms"] = NF.benchmark_train_step(reps=11)[0] * 1e3
     print(json.dumps(out), flush=True)
     return 0
 

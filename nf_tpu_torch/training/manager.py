@@ -38,8 +38,19 @@ the start and ``torch`` (the best model and its metadata) at the end into
 ``torch.save`` files written by :mod:`nf_tpu_torch.utils.checkpoint`; nf_tpu
 cannot read them, nor the port nf_tpu's.
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh`` and
-``epochs_per_sync`` other than 1.
+``mesh`` (a 1-D ``"dp"`` mesh, :mod:`nf_tpu_torch.parallel`) makes the
+trainer, ``sample`` and ``integrate`` data-parallel: every rank draws each
+global batch from its generator (seeded alike), maps its own rows, and the
+losses, statistics and BatchNorm moments are all-reduced; the gradients are
+averaged across ranks, so the parameters stay replicated.  The reductions
+are the same sums with or without a mesh, so a world of one gives the bits
+of the single-device run.  The stale trainer refreshes its statistics from
+the forward kernel's all-reduced batch sums on every world size (nf_tpu
+refreshes from a train-mode forward under a mesh).  Only the first rank
+writes files.
+
+Not ported yet, and refused with ``NotImplementedError``: ``epochs_per_sync``
+other than 1.
 """
 
 from __future__ import annotations
@@ -55,6 +66,10 @@ import torch
 from nf_tpu_torch.flows import factory
 from nf_tpu_torch.flows import sampling as fsampling
 from nf_tpu_torch.ops import pwquad_train
+from nf_tpu_torch.parallel import sampling as psampling
+from nf_tpu_torch.parallel.dp import (all_reduce_max, all_reduce_sum, average_gradients,
+                                      broadcast_replicas, global_mean, global_mean_var)
+from nf_tpu_torch.parallel.mesh import group_of, rank_and_size, shard_rows
 from nf_tpu_torch.utils import checkpoint
 
 
@@ -63,11 +78,17 @@ def _not_ported(name, value):
 
 
 def epoch_step(model, optimizer, f, ws, preburn: bool, maxf, loss_mode: str,
-               pathwise: bool = False, forward=None):
+               pathwise: bool = False, forward=None, group=None):
     """One training epoch on the minibatches of latents ``ws``: the loss
     gradients of all minibatches, averaged, then one optimizer step.
     ``forward(w) -> (x, jac)`` maps a minibatch; the default is the model's
     train-mode forward, which moves the BatchNorm buffers.
+
+    Under data parallelism ``ws`` are this rank's rows of the minibatches
+    and ``group`` the process group: every mean and variance is the global
+    batch's, from all-reduced sums (:func:`~nf_tpu_torch.parallel.dp
+    .global_mean_var`, two all-reduces a minibatch and their two in the
+    backward), and the gradients are averaged across ranks.
 
     Returns a tensor ``[loss, var, integ, err, ess]`` (still on the device),
     ``ess = mean(fres)^2 / mean(fres^2)`` over the minibatches.  Counterpart
@@ -75,8 +96,8 @@ def epoch_step(model, optimizer, f, ws, preburn: bool, maxf, loss_mode: str,
     """
     if forward is None:
         def forward(w):
-            return model(w, True)
-    mb = ws[0].shape[0]
+            return model(w, True, group)
+    mb = ws[0].shape[0] * rank_and_size(group)[1]
     optimizer.zero_grad(set_to_none=True)
     ls, iis, eis, vis, qis = [], [], [], [], []
     for w in ws:
@@ -91,26 +112,26 @@ def epoch_step(model, optimizer, f, ws, preburn: bool, maxf, loss_mode: str,
             # through J only; pathwise also differentiates f(x)
             fres = f(x if pathwise else x.detach()) * jacv
             fXJ = fres / maxf
-        if loss_mode == "var" or (loss_mode == "kl" and preburn):
+        var_loss = loss_mode == "var" or (loss_mode == "kl" and preburn)
+        if var_loss:
             # kl mode keeps the variance loss during preburn: KL losses are
             # negative, which would confuse the ratio-based preburn exit
-            loss = torch.var(fXJ)
+            head = fXJ
         elif loss_mode == "kl":
             # reweighted forward KL: -E_w[w_tilde log q(x)], log q = -log J
-            loss = torch.mean(fXJ.detach() * torch.log(torch.clamp_min(jacv, 1e-30)))
+            head = fXJ.detach() * torch.log(torch.clamp_min(jacv, 1e-30))
         else:
-            loss = torch.mean((fXJ * maxf) ** 2)
-        loss.backward()
+            head = (fXJ * maxf) ** 2
         fres, fXJ = fres.detach(), fXJ.detach()
+        means, var = global_mean_var(torch.stack([head, fres, fXJ ** 2, fres ** 2]), group)
+        loss = var[0] if var_loss else means[0]
+        loss.backward()
         ls.append(loss.detach())
-        iis.append(torch.mean(fres))
-        eis.append(torch.var(fres))
-        vis.append(torch.var(fXJ ** 2) / mb)
-        qis.append(torch.mean(fres ** 2))
-    with torch.no_grad():
-        for p in model.parameters():
-            if p.grad is not None:
-                p.grad.div_(len(ws))
+        iis.append(means[1].detach())
+        eis.append(var[1].detach())
+        vis.append(var[2].detach() / mb)
+        qis.append(means[3].detach())
+    average_gradients(model.parameters(), group, len(ws))
     optimizer.step()
     optimizer.zero_grad(set_to_none=True)
     mean_w = torch.mean(torch.stack(iis))
@@ -130,38 +151,30 @@ def stale_forward(plan, model):
     return forward
 
 
-def refresh_bn_stats(plan, model, w):
+def refresh_bn_stats(plan, model, w, group=None):
     """Move ``model``'s running statistics by one EMA step from the forward
     kernel's batch sums over the latents ``w``, with the model folded as it
-    now is (nf_tpu manager.py:544-555, its kernel path)."""
+    now is (nf_tpu manager.py:544-555, its kernel path).  Under data
+    parallelism ``w`` is this rank's rows: the sums are all-reduced and
+    divided by the global count."""
     with torch.no_grad():
         stats = pwquad_train.train_forward(plan, pwquad_train.fold_flow(model),
                                            w.to(torch.float32), with_stats=True)[3]
-        pwquad_train.stats_to_bn_state(model, stats, w.shape[0])
+        pwquad_train.stats_to_bn_state(model, all_reduce_sum(stats, group),
+                                       w.shape[0] * rank_and_size(group)[1])
 
 
 def stale_epoch_step(model, plan, optimizer, f, ws, preburn, maxf, loss_mode,
-                     pathwise=False, refresh_w=None):
+                     pathwise=False, refresh_w=None, group=None):
     """One epoch of the stale-statistics trainer: :func:`epoch_step` through
     :func:`stale_forward`, the BatchNorm statistics fixed, then, with
-    ``refresh_w``, one :func:`refresh_bn_stats` after the optimizer step."""
+    ``refresh_w``, one :func:`refresh_bn_stats` after the optimizer step.
+    ``group``: see :func:`epoch_step`."""
     stats = epoch_step(model, optimizer, f, ws, preburn, maxf, loss_mode, pathwise,
-                       stale_forward(plan, model))
+                       stale_forward(plan, model), group)
     if refresh_w is not None:
-        refresh_bn_stats(plan, model, refresh_w)
+        refresh_bn_stats(plan, model, refresh_w, group)
     return stats
-
-
-def combine_iterations(means, variances, neval: int, nitn: int, combine: str):
-    """Combine per-iteration means/variances (tensors ``[nitn]``) into
-    ``(sig, sig_err)`` tensors.  ``"iw"``: the reference's inverse-variance
-    weighting; ``"mean"``: the plain mean with the pooled standard error."""
-    if combine == "mean":
-        return torch.mean(means), torch.sqrt(torch.mean(variances) / (neval * nitn))
-    if combine == "iw":
-        sig = torch.sum(means / variances) / torch.sum(1.0 / variances)
-        return sig, torch.sqrt(1.0 / torch.sum(1.0 / variances)) / math.sqrt(neval * nitn)
-    raise ValueError(f"unknown combine {combine!r}; expected 'iw' or 'mean'")
 
 
 class BasicManager:
@@ -186,6 +199,7 @@ class BasicManager:
         self.best_model = None
         self.best_loss = None
         self.best_eval_mode = False      # see the tail integration below
+        self._group = None               # the last run's process group (mesh)
 
     @property
     def model(self):
@@ -227,10 +241,22 @@ class BasicManager:
         BatchNorm unless a tail-integration phase flipped the best model to
         eval.  ``model`` defaults to the best model; ``seed`` to the
         manager's generator.
+
+        ``mesh`` shards the draw over the mesh's ``"dp"`` axis
+        (:func:`~nf_tpu_torch.parallel.sampling.make_dp_sampler`: the fused
+        kernel per rank on the card, each rank at its own Philox counter
+        offset) and returns the global arrays on every rank, the bits of the
+        single-device draw on the fused path.  It is eval-mode only:
+        ``train=True`` and ``method="reference"`` raise ``ValueError``.
         """
-        if mesh is not None:
-            _not_ported("mesh", mesh)
         model = self.best_model if model is None else model
+        if mesh is not None:
+            if train:
+                raise ValueError("mesh= sharded sampling is eval-mode only; train=True needs "
+                                 "a single replica's batch statistics")
+            fn = psampling.make_dp_sampler(self._flow, model, mesh, n, method,
+                                           dtype=self.dtype)
+            return fn(self._generator(seed))
         method = self._resolve_method(method, train)
         if method == "reference":
             method = "stateful"
@@ -243,19 +269,22 @@ class BasicManager:
 
     @staticmethod
     def _epoch_runner(model, optimizer, uniform, f, maxf, loss_mode, pathwise, plan,
-                      stats_every, stats_batch):
+                      stats_every, stats_batch, group):
         """``run_epoch(i, preburn, ws) -> [loss, var, integ, err, ess]`` for global
-        epoch ``i``: the batch-statistics step, or with a :class:`TrainPlan`
-        the stale one, refreshing the statistics on latents drawn by
-        ``uniform(shape)`` when ``i % stats_every == 0`` (nf_tpu
-        manager.py:540-560)."""
+        epoch ``i`` on the global minibatches ``ws``: the batch-statistics step,
+        or with a :class:`TrainPlan` the stale one, refreshing the statistics
+        on latents drawn by ``uniform(shape)`` when ``i % stats_every == 0``
+        (nf_tpu manager.py:540-560).  Under a process ``group`` each rank
+        takes its rows of every batch."""
         def run_epoch(i, preburn, ws):
+            ws = [shard_rows(w, group) for w in ws]
             if plan is None:
-                return epoch_step(model, optimizer, f, ws, preburn, maxf, loss_mode, pathwise)
-            refresh_w = uniform((stats_batch, ws[0].shape[1])) if i % stats_every == 0 \
-                else None
+                return epoch_step(model, optimizer, f, ws, preburn, maxf, loss_mode, pathwise,
+                                  group=group)
+            refresh_w = shard_rows(uniform((stats_batch, ws[0].shape[1])), group) \
+                if i % stats_every == 0 else None
             return stale_epoch_step(model, plan, optimizer, f, ws, preburn, maxf, loss_mode,
-                                    pathwise, refresh_w)
+                                    pathwise, refresh_w, group)
         return run_epoch
 
     def _train_variance_forward_seq(self, f, optimizer_object, log=True,
@@ -281,14 +310,15 @@ class BasicManager:
         trains with the running statistics fixed within each epoch and
         refreshed every ``stats_every`` epochs (module docstring).
         ``select_best_by="ess"`` snapshots the epoch of the largest
-        effective-sample fraction instead of the least loss.  Returns
-        ``(integral, error)`` when ``integrate`` else ``(0, 0)``.
+        effective-sample fraction instead of the least loss.  ``mesh``
+        trains data-parallel (module docstring): the minibatch and the
+        statistics batch must divide by the mesh size (else ``ValueError``),
+        and the first rank's parameters, buffers and generator state are
+        broadcast to the others at the start.  Returns ``(integral,
+        error)`` when ``integrate`` else ``(0, 0)``.
         """
-        for name, value, ported in (
-                ("mesh", mesh, mesh is None),
-                ("epochs_per_sync", epochs_per_sync, epochs_per_sync == 1)):
-            if not ported:
-                _not_ported(name, value)
+        if epochs_per_sync != 1:
+            _not_ported("epochs_per_sync", epochs_per_sync)
         if bn_stats not in ("batch", "stale"):
             raise ValueError(f"unknown bn_stats {bn_stats!r}")
         if select_best_by not in ("loss", "ess"):
@@ -298,12 +328,13 @@ class BasicManager:
             return
         if seed is not None:
             self._gen.manual_seed(seed)
-        if log and logdir is not None:
-            # reference manager.py:101-109: the stub checkpoint at the start
-            self._save_checkpoint_stub(logdir, run)
-
         model = self._model
         n_flow = self.n_flow
+        self._group = group = group_of(mesh)
+        broadcast_replicas([model], group, self._gen)
+        if log and logdir is not None and rank_and_size(group)[0] == 0:
+            # reference manager.py:101-109: the stub checkpoint at the start
+            self._save_checkpoint_stub(logdir, run)
 
         check_time = preburn_time if preburn_time > 10 else 50
         mini_batch_size = min(mini_batch_size, batch_size)
@@ -340,7 +371,8 @@ class BasicManager:
         epoch_cfg = {"f": f, "maxf": maxf, "loss_mode": loss_mode, "pathwise": pathwise,
                      "plan": pwquad_train.TrainPlan(self._flow) if bn_stats == "stale" else None,
                      # the refresh's bounded batch (nf_tpu manager.py:464)
-                     "stats_every": stats_every, "stats_batch": min(mini_batch_size, 1 << 16)}
+                     "stats_every": stats_every, "stats_batch": min(mini_batch_size, 1 << 16),
+                     "group": group}
         run_epoch = self._epoch_runner(model, optimizer, self._uniform, **epoch_cfg)
 
         # ---- host-side epoch loop with the early-stop state machine
@@ -450,10 +482,11 @@ class BasicManager:
                 for s in range(endpoint, total):
                     means, stds = [], []
                     for _ in range(n_minibatches):
-                        x, jacv = best(self._uniform((mini_batch_size, n_flow)), False)
-                        fres = f(x) * jacv
-                        means.append(torch.mean(fres))
-                        stds.append(torch.std(fres))
+                        x, jacv = best(shard_rows(self._uniform((mini_batch_size, n_flow)),
+                                                  group), False)
+                        mean, var = global_mean_var((f(x) * jacv)[None], group)
+                        means.append(mean[0])
+                        stds.append(torch.sqrt(var[0]))
                     ie = torch.mean(torch.stack(means)) / math.sqrt(mini_batch_size)
                     ee = torch.mean(torch.stack(stds))
                     ie, ee = torch.stack([ie, ee]).tolist()
@@ -473,7 +506,7 @@ class BasicManager:
         if run is not None and integrate:
             run.log_scalar("training.integ", self.integ_tot, 0)
             run.log_scalar("training.err", self.err_tot, 0)
-        if log and logdir is not None:
+        if log and logdir is not None and rank_and_size(group)[0] == 0:
             self._save_checkpoint(logdir, run)
 
         if integrate:
@@ -486,29 +519,33 @@ class BasicManager:
         ``best_loss`` / ``best_var``; with ``snapshot``, the diagnostics and
         the initial best-model snapshot (reference manager.py:170-196),
         which move the BN buffers.  Returns ``maxf`` (a device scalar)."""
-        n_flow, model = self.n_flow, self._model
+        n_flow, model, group = self.n_flow, self._model, self._group
+        size = rank_and_size(group)[1]
         with torch.no_grad():
             zero = torch.zeros((), dtype=self.dtype, device=self.device)
             maxf, best_loss, best_var, integ0, err0 = zero, zero, zero, zero, zero
             for _ in range(n_flow):
-                w = self._uniform((2 * mini_batch_size, n_flow))
+                w = shard_rows(self._uniform((2 * mini_batch_size, n_flow)), group)
                 fres = f(w)
-                integ0 = integ0 + torch.sum(fres) / (n_flow * 2 * mini_batch_size)
-                err0 = err0 + torch.var(fres) / n_flow
-                maxf = torch.maximum(maxf, torch.max(fres))
+                maxf = torch.maximum(maxf, all_reduce_max(torch.max(fres), group))
+                g = fres / maxf
+                means, var = global_mean_var(torch.stack([fres, g, g ** 2, fres ** 2]), group)
+                integ0 = integ0 + means[0] / n_flow
+                err0 = err0 + var[0] / n_flow
                 if loss_mode == "var":
-                    best_loss = best_loss + torch.var(fres / maxf) / n_flow
+                    best_loss = best_loss + var[1] / n_flow
                 else:
-                    best_loss = best_loss + torch.mean(fres ** 2) / n_flow
-                best_var = best_var + torch.var((fres / maxf) ** 2) / 2 * mini_batch_size
+                    best_loss = best_loss + means[3] / n_flow
+                best_var = best_var + var[2] / 2 * mini_batch_size
             integ[0], err[0], self.best_loss, self.best_var = \
                 torch.stack([integ0, err0, best_loss, best_var]).tolist()
             if snapshot:
-                x, jacv = model(w, True)
-                self.varJ = float(torch.mean(jacv ** 2))
+                x, jacv = model(w, True, group)
+                self.varJ = float(global_mean(jacv ** 2, group))
                 # torch KLDivLoss default 'mean' divides by numel = B * n_flow
-                self.DKL = float(torch.sum(w * (torch.log(w) - torch.log(x + 1e-45)))
-                                 / w.numel())
+                self.DKL = float(all_reduce_sum(
+                    torch.sum(w * (torch.log(w) - torch.log(x + 1e-45))), group)
+                    / (w.numel() * size))
                 self.best_model = copy.deepcopy(model)
                 self.best_epoch = 0
                 self.best_time = 0
@@ -585,15 +622,26 @@ class BasicManager:
         a power of two) through the eval-mode map, whatever
         ``best_eval_mode`` says; the error is the standard error across
         replications and ``combine`` is ignored (:meth:`_integrate_qmc`).
+
+        ``mesh`` shards the estimate over the mesh's ``"dp"`` axis
+        (:func:`~nf_tpu_torch.parallel.sampling.make_dp_integrator`: each
+        rank maps its rows of every iteration, the kernel on the card, and
+        the iterations' sums are all-reduced).  It is eval-mode only
+        (``method="reference"`` raises); for ``method="qmc"`` each rank runs
+        its own replications (``nitn`` rounded up to a multiple of the mesh
+        size, :func:`~nf_tpu_torch.parallel.sampling.make_dp_rqmc`).
         """
         if self.best_model is None:
             print("No model has been trained")
             return (0, 0)
-        if mesh is not None:
-            _not_ported("mesh", mesh)
         neval, nitn = int(neval), int(nitn)
         if method == "qmc":
-            return self._integrate_qmc(f, nitn, neval, seed)
+            return self._integrate_qmc(f, nitn, neval, seed, mesh)
+        if mesh is not None:
+            fn = psampling.make_dp_integrator(self._flow, self.best_model, f, mesh, nitn, neval,
+                                              method, self.dtype)
+            means, variances = fn(self._generator(seed))
+            return psampling.combine_iterations(means, variances, neval * nitn, combine)
         method = self._resolve_method(method, None)
         gen = self._generator(seed)
         model = self.best_model
@@ -621,19 +669,21 @@ class BasicManager:
                 fres = f(x) * jacv
                 means.append(torch.mean(fres))
                 variances.append(torch.var(fres))
-            sig, sig_err = combine_iterations(torch.stack(means), torch.stack(variances),
-                                              neval, nitn, combine)
-            sig, sig_err = torch.stack([sig, sig_err]).tolist()
+            sig, sig_err = psampling.combine_iterations(torch.stack(means),
+                                                        torch.stack(variances), neval * nitn,
+                                                        combine)
         return (sig, sig_err)
 
-    def _integrate_qmc(self, f, nitn, neval, seed):
+    def _integrate_qmc(self, f, nitn, neval, seed, mesh=None):
         """RQMC through the best model's eval-mode map (nf_tpu
         manager.py:1011-1026, 1108-1137).  The base seed is ``seed``, else a
         draw from the manager's generator in [0, 2^31 - 1).  On a CUDA device
         the points come from :func:`~nf_tpu_torch.utils.qmc.make_device_sobol`
         and the map is the sampler kernel in operand mode, all replications
         without a host sync; elsewhere scipy's points go through the folded
-        forward in the manager's dtype."""
+        forward in the manager's dtype.  With ``mesh`` every rank maps its
+        own replications of the device Sobol (nf_tpu manager.py:1139-1161),
+        and the error is the standard error across all of them."""
         from nf_tpu_torch.utils import qmc
 
         base = seed if seed is not None else int(torch.randint(
@@ -642,22 +692,26 @@ class BasicManager:
         with torch.no_grad():
             if self.device.type == "cuda":
                 from nf_tpu_torch.ops.pwquad_sampler import build_sampler
-                sampler = build_sampler(self._flow, model, take_latents=True)
+                forward = build_sampler(self._flow, model, take_latents=True)
+            else:
+                from nf_tpu_torch.flows.fast_eval import make_folded_forward
+                fold = make_folded_forward(self._flow, model, self.dtype)
 
-                def eval_mean(w):
-                    x, jacv = sampler(w)
-                    return torch.mean(f(x) * jacv)
+                def forward(w):
+                    return fold(torch.as_tensor(w, device=self.device).to(self.dtype))
 
+            def eval_mean(w):
+                x, jacv = forward(w)
+                return torch.mean(f(x) * jacv)
+
+            if mesh is not None:
+                fn = psampling.make_dp_rqmc(eval_mean, self.n_flow, nitn, neval, mesh,
+                                            self.device)[0]
+                sig, sig_err = qmc.rqmc_result(fn(base))
+            elif self.device.type == "cuda":
                 sig, sig_err, _ = qmc.rqmc_integrate_device(eval_mean, self.n_flow, nitn,
                                                             neval, base, self.device)
             else:
-                from nf_tpu_torch.flows.fast_eval import make_folded_forward
-                forward = make_folded_forward(self._flow, model, self.dtype)
-
-                def eval_mean(w):
-                    x, jacv = forward(torch.as_tensor(w, device=self.device))
-                    return torch.mean(f(x) * jacv)
-
                 sig, sig_err, _ = qmc.rqmc_integrate(
                     eval_mean, self.n_flow, nitn, neval, base,
                     dtype=np.float64 if self.dtype == torch.float64 else np.float32)
@@ -717,7 +771,10 @@ class BasicManager:
         state, the generator's state, ``maxf``, the integral and error
         histories and nf_tpu's metadata, the state machine included.  The
         plan and dtype are stored, and a resume into a manager built
-        otherwise raises."""
+        otherwise raises.  After a data-parallel run only the first rank
+        writes."""
+        if rank_and_size(self._group)[0] != 0:
+            return
         checkpoint.save(path, {
             "plan": repr(self._flow),
             "dtype": str(self.dtype),

@@ -23,7 +23,7 @@ alphas by the Kleiss-Pittau update on the device, and keeps the best
 unweighted events from the trained mixture with a global or per-channel
 maxima, plainly or partially.
 
-Differences from nf_tpu in idiom:
+Differences in idiom, against nf_tpu:
 
   * a channel's flow is one :class:`~nf_tpu_torch.flows.model.FlowModel`
     (plan, parameters and BatchNorm buffers) where nf_tpu passes ``flows,
@@ -37,8 +37,15 @@ Differences from nf_tpu in idiom:
   * flows run in eval mode and never move their BatchNorm buffers; the
     forward and the phase space run without autograd.
 
-Plain torch: nf_tpu's functions here reach no Pallas kernel.  ``mesh`` is
-not ported (ROADMAP A7).
+Plain torch: nf_tpu's functions here reach no Pallas kernel.
+
+``mesh`` (a 1-D ``"dp"`` mesh, :mod:`nf_tpu_torch.parallel`) shards each
+channel's batch, as nf_tpu's ``_shard_batch``: every rank draws the global
+latents and maps its rows; :func:`mixture_weights` gathers the global
+arrays, and :func:`train_multichannel` all-reduces the losses' means, the
+epoch's weight, ESS and Kleiss-Pittau sums and the pilot's maximum, and
+averages the gradients across ranks.  The sums are the same with or without
+a mesh, so a world of one gives the bits of the single-device run.
 """
 
 from __future__ import annotations
@@ -51,6 +58,9 @@ import torch
 
 from nf_tpu_torch.flows import factory
 from nf_tpu_torch.flows.model import inverse as flow_inverse
+from nf_tpu_torch.parallel.dp import (all_gather_rows, all_reduce_max, all_reduce_sum,
+                                      average_gradients, broadcast_replicas)
+from nf_tpu_torch.parallel.mesh import group_of, local_rows, rank_and_size
 from nf_tpu_torch.training.unweight import _quantile
 from nf_tpu_torch.utils import checkpoint
 
@@ -63,11 +73,6 @@ _HISTORY = ("loss", "integral", "ess", "alphas")
 _RESUME_CONFIG = ("epochs", "epochs_per_call", "seed", "batch_per_channel",
                   "mini_batch_per_channel", "loss_mode", "learn_alphas",
                   "alpha_damping", "alpha_floor")
-
-
-def _not_ported(name, value):
-    raise NotImplementedError(f"{name}={value!r} is not ported to nf_tpu_torch yet "
-                              "(ROADMAP A7)")
 
 
 def _uniform(generator, shape, dtype, device):
@@ -149,18 +154,38 @@ def mixture_weights(channels, models, matrix_element, E_cm, generator,
     the samples to one channel (leading axis of length 1; the densities
     still go through every channel).  Latents are drawn channel by channel
     from ``generator`` through :func:`_uniform`.
+
+    ``mesh`` shards each channel's batch over the mesh's ``"dp"`` axis: each
+    rank maps its rows and the global arrays come back on every rank,
+    differentiable (``batch_per_channel`` must divide by the mesh size).
     """
-    if mesh is not None:
-        _not_ported("mesh", mesh)
+    group = group_of(mesh)
+    w, aux = _mixture(channels, models, matrix_element, E_cm, generator, batch_per_channel,
+                      alphas, pT_mincut, delR_mincut, rap_maxcut, pdgs, with_kinematics,
+                      only_channel, group)
+    if group is None:
+        return w, aux
+
+    def gather(t, axis):
+        return all_gather_rows(t.movedim(axis, 0), group).movedim(0, axis)
+    return gather(w, 1), {k: gather(v, 2 if k == "r" else 1) for k, v in aux.items()}
+
+
+def _mixture(channels, models, matrix_element, E_cm, generator, batch_per_channel, alphas,
+             pT_mincut, delR_mincut, rap_maxcut, pdgs, with_kinematics, only_channel, group):
+    """:func:`mixture_weights` on this rank's rows of every channel's batch
+    (all of it for ``group=None``): the arrays' batch axes hold the rank's
+    rows."""
     dtype, device = _dtype_device(models)
-    B = batch_per_channel
+    lo, hi = local_rows(batch_per_channel, group, "batch_per_channel")
+    B = hi - lo
     n_lat = _n_latent(channels[0])
     alphas = torch.as_tensor(alphas, dtype=dtype, device=device)
     sources = range(len(channels)) if only_channel is None else [only_channel]
     ws, qs, rs, fs, moms, xbs = [], [], [], [], [], []
     for k in sources:
         ch = channels[k]
-        z = _uniform(generator, (B, n_lat), dtype, device)
+        z = _uniform(generator, (batch_per_channel, n_lat), dtype, device)[lo:hi]
         with torch.no_grad():
             u_k, _ = models[k](z, False)
             u_k = torch.clamp(u_k, _EPS_U, 1.0 - _EPS_U)
@@ -208,17 +233,23 @@ def mixture_weights(channels, models, matrix_element, E_cm, generator,
     return torch.stack(ws, dim=0), aux
 
 
-def _loss(loss_mode, w, aux, w_scale, alphas):
+def _loss(loss_mode, w, aux, w_scale, alphas, group=None):
+    """The training loss of the weights ``w [C, B]``.  Under a process
+    ``group`` ``w`` and ``aux`` hold this rank's rows and the per-channel
+    means are the global batch's (one all-reduce)."""
     wn = w / w_scale
-    m2 = torch.mean(wn ** 2, dim=1)
-    if loss_mode == "var":
-        return torch.sum(alphas * (m2 - torch.mean(wn, dim=1) ** 2))
+    n = w.shape[1] * rank_and_size(group)[1]
     if loss_mode == "kl":
         # reweighted forward KL on the mixture density: -E[w~ log q_hat]
         # with w~ detached; gradients flow through every rho_m in q_hat,
         # and cut or out-of-support samples (w = 0) contribute 0
         logq = torch.log(torch.clamp_min(aux["q"], _tiny(w.dtype)))
-        return -torch.sum(alphas * torch.mean(wn.detach() * logq, dim=1))
+        return -torch.sum(alphas * all_reduce_sum(torch.sum(wn.detach() * logq, dim=1),
+                                                  group) / n)
+    m2, m1 = (all_reduce_sum(torch.stack([torch.sum(wn ** 2, dim=1), torch.sum(wn, dim=1)]),
+                             group) / n).unbind(0)
+    if loss_mode == "var":
+        return torch.sum(alphas * (m2 - m1 ** 2))
     return torch.sum(alphas * m2)
 
 
@@ -248,6 +279,11 @@ def train_multichannel(channels, models, matrix_element, E_cm, optimizer,
     optimizer step.  The integral, ESS and Kleiss-Pittau sums are
     full-epoch estimates; the best (flows, alphas) is kept by mixture ESS.
 
+    ``mesh`` trains data-parallel (module docstring): ``mini_batch_per_channel``
+    must divide by the mesh size, the first rank's flows and generator state
+    are broadcast to the others at the start, and only the first rank writes
+    ``save_state``.
+
     ``epochs_per_call`` splits the epochs into chunks: the history is read
     back once per chunk, and with ``save_state`` (a path) the whole state
     (flows, optimizer, alphas, best snapshot, ``w_scale``, the generator's
@@ -265,8 +301,6 @@ def train_multichannel(channels, models, matrix_element, E_cm, optimizer,
     """
     if loss_mode not in ("var", "secmom", "kl"):
         raise ValueError(f"loss_mode={loss_mode!r} not in ('var', 'secmom', 'kl')")
-    if mesh is not None:
-        _not_ported("mesh", mesh)
     if stop_after_chunks is not None and stop_after_chunks <= 0:
         raise ValueError(f"stop_after_chunks={stop_after_chunks} must be positive")
     if mini_batch_per_channel is None:
@@ -293,6 +327,8 @@ def train_multichannel(channels, models, matrix_element, E_cm, optimizer,
     alphas = torch.as_tensor(np.asarray(alphas, np.float64) / np.sum(alphas), dtype=dtype,
                              device=device)
     models = tuple(copy.deepcopy(m) for m in models)
+    group = group_of(mesh)
+    broadcast_replicas(models, group, generator)
     best_models = tuple(copy.deepcopy(m) for m in models)
     params = [p for m in models for p in m.parameters()]
     best_params = [p for m in best_models for p in m.parameters()]
@@ -301,7 +337,8 @@ def train_multichannel(channels, models, matrix_element, E_cm, optimizer,
     best_ess = torch.tensor(-1.0, dtype=dtype, device=device)
     best_alphas = alphas.clone()
     w_scale = torch.ones((), dtype=dtype, device=device)
-    kw = dict(pT_mincut=pT_mincut, delR_mincut=delR_mincut, rap_maxcut=rap_maxcut, pdgs=pdgs)
+    kw = dict(pT_mincut=pT_mincut, delR_mincut=delR_mincut, rap_maxcut=rap_maxcut, pdgs=pdgs,
+              with_kinematics=False, only_channel=None, group=group)
     # the history: read back chunks (host) and this chunk's epochs (device)
     hist_host = {name: [] for name in _HISTORY}
     hist_dev = {name: [] for name in _HISTORY}
@@ -333,9 +370,9 @@ def train_multichannel(channels, models, matrix_element, E_cm, optimizer,
         # the weight scale (the manager's maxf): one detached pass at the
         # initial parameters keeps the loss O(1)
         with torch.no_grad():
-            w0, _ = mixture_weights(channels, models, matrix_element, E_cm, generator, mb,
-                                    alphas, **kw)
-        w_scale = torch.clamp_min(torch.max(w0), tiny)
+            w0, _ = _mixture(channels, models, matrix_element, E_cm, generator, mb, alphas,
+                             **kw)
+        w_scale = torch.clamp_min(all_reduce_max(torch.max(w0), group), tiny)
 
     def epoch():
         nonlocal alphas, best_ess, best_alphas
@@ -343,9 +380,9 @@ def train_multichannel(channels, models, matrix_element, E_cm, optimizer,
         zeros = torch.zeros((C,), dtype=dtype, device=device)
         loss_sum, s1, s2, sW = torch.zeros((), dtype=dtype, device=device), zeros, zeros, zeros
         for _ in range(n_mb):
-            w, aux = mixture_weights(channels, models, matrix_element, E_cm, generator, mb,
-                                     alphas, **kw)
-            loss = _loss(loss_mode, w, aux, w_scale, alphas)
+            w, aux = _mixture(channels, models, matrix_element, E_cm, generator, mb, alphas,
+                              **kw)
+            loss = _loss(loss_mode, w, aux, w_scale, alphas, group)
             loss.backward()
             w = w.detach()
             loss_sum = loss_sum + loss.detach()
@@ -354,12 +391,10 @@ def train_multichannel(channels, models, matrix_element, E_cm, optimizer,
             # Kleiss-Pittau numerator sums W_m = E[(f/q)^2 p_m], stratified
             sW = sW + torch.sum(alphas[None, :, None] * w[None, :, :] ** 2
                                 * aux["r"].detach(), dim=(1, 2))
-        with torch.no_grad():
-            for p in params:
-                if p.grad is not None:
-                    p.grad /= n_mb
+        average_gradients(params, group, n_mb)
         opt.step()
         with torch.no_grad():
+            s1, s2, sW = all_reduce_sum(torch.stack([s1, s2, sW]), group).unbind(0)
             m1 = torch.sum(alphas * s1) / batch_per_channel
             m2 = torch.sum(alphas * s2) / batch_per_channel
             ess = m1 ** 2 / torch.clamp_min(m2, tiny)
@@ -383,7 +418,7 @@ def train_multichannel(channels, models, matrix_element, E_cm, optimizer,
         for name in _HISTORY:       # one read-back per chunk
             hist_host[name].append(torch.cat(hist_dev[name]).cpu())
             hist_dev[name].clear()
-        if save_state is not None:
+        if save_state is not None and rank_and_size(group)[0] == 0:
             checkpoint.save(save_state, snapshot(c + 1, opt.state_dict(), {
                 name: torch.cat(v).numpy() for name, v in hist_host.items()}))
         if stop_after_chunks is not None and c + 1 - c_start >= stop_after_chunks:

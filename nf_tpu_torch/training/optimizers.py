@@ -5,8 +5,10 @@ The reference trains with ``torch.optim.Adamax(params, lr, weight_decay)``
 ``add_decayed_weights`` (L2 added to the gradient before the moments)
 chained in front of ``optax.adamax``, whose infinity moment is
 ``max(b2 * u, |g| + eps)`` like torch's.  So the port uses
-``torch.optim.Adamax`` itself; ``tests/test_torch_manager.py`` holds one
-update against nf_tpu's in float64.
+``torch.optim.Adamax`` itself, and :func:`adam` ``torch.optim.Adam`` for
+nf_tpu's ``add_decayed_weights`` + ``optax.adam`` (optax's defaults:
+``b1=0.9, b2=0.999, eps=1e-8``).  ``tests/test_torch_manager.py`` holds three
+updates of each against nf_tpu's in float64.
 
 Each factory returns ``make(params) -> torch.optim.Optimizer``: the manager
 binds it to the model's parameters when training starts.
@@ -23,3 +25,8 @@ def adamax(learning_rate: float, weight_decay: float = 0.0,
            b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
     return functools.partial(torch.optim.Adamax, lr=learning_rate,
                              betas=(b1, b2), eps=eps, weight_decay=weight_decay)
+
+
+def adam(learning_rate: float, weight_decay: float = 0.0):
+    return functools.partial(torch.optim.Adam, lr=learning_rate, betas=(0.9, 0.999),
+                             eps=1e-8, weight_decay=weight_decay)

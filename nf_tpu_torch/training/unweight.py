@@ -10,7 +10,10 @@ Every function takes its device from the model and its randomness from a
 ``torch.Generator`` on that device.  On a CUDA model, ``method="auto"``
 draws the proposals through the fused sampler kernel, one fresh kernel seed
 per batch (:func:`nf_tpu_torch.flows.sampling.seed_from`), so no two batches
-repeat a proposal.
+repeat a proposal.  Under a ``mesh`` each rank maps its rows of every
+proposal batch (:func:`nf_tpu_torch.parallel.sampling.make_dp_sampler`) and
+the rest runs on the gathered global batch on every rank, so the events
+equal the single-device run's on the same draws.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from nf_tpu_torch.flows import sampling as fsampling
 from nf_tpu_torch.ops.pwquad_sampler import model_device
+from nf_tpu_torch.parallel.sampling import make_dp_sampler
 
 
 def _make_draw(flow, model, n, train, method):
@@ -55,16 +59,23 @@ def _quantile(a, q):
     return ref.to(a.dtype)
 
 
+def _reference_weight(draw, f, generator, quantile):
+    """The largest weight ``f(x) jac`` of one ``draw(generator)``, or with
+    ``quantile < 1`` that quantile."""
+    with torch.no_grad():
+        x, jacv = draw(generator)
+        weights = f(x) * jacv
+        ref = torch.max(weights) if quantile >= 1.0 else _quantile(weights, quantile)
+    return float(ref)
+
+
 def estimate_wmax(flow, model, f, generator, n=100_000, train=False, safety=1.0,
                   quantile=1.0, method=None):
     """The reference weight over ``n`` fresh samples, times ``safety``: the
     largest, or with ``quantile < 1`` that quantile (heavy-tailed weights;
     the few over-weight events are kept and counted by the unweighter)."""
-    with torch.no_grad():
-        x, jacv = _make_draw(flow, model, n, train, method)(generator)
-        weights = f(x) * jacv
-        ref = torch.max(weights) if quantile >= 1.0 else _quantile(weights, quantile)
-    return float(ref) * safety
+    return _reference_weight(_make_draw(flow, model, n, train, method), f, generator,
+                             quantile) * safety
 
 
 def unweighted_batch(flow, model, f, generator, n_proposals, w_max, train=False,
@@ -127,18 +138,33 @@ def generate_unweighted(flow, model, f, generator, n_events, w_max=None, train=F
     doubles for the next batches.  ``"auto"`` sizes the capacity from the
     first batch as ``max(1024, 1.5 rate batch)``; an ``int`` forces it from
     the first batch on; ``False`` keeps every accepted row.  Whatever the
-    setting, only accepted rows are copied to the host.  ``mesh`` is not
-    ported.
+    setting, only accepted rows are copied to the host.
+
+    ``mesh`` draws the proposals, and the w_max pilot's, sharded over the
+    mesh's ``"dp"`` axis: each rank maps its rows (the fused kernel per
+    rank on the card; ``method="auto"`` is the folded forward off it) and
+    gathers the global batch, whose maximum or quantile, acceptance and
+    accepted rows are then the same on every rank.  It is eval-mode only,
+    and ``compact="auto"`` is off under it (nf_tpu unweight.py:157-158).
     """
     if mesh is not None:
-        raise NotImplementedError(f"mesh={mesh!r} is not ported to nf_tpu_torch yet")
-    if method == "auto":
-        method = "fused" if (not train and model_device(model).type == "cuda"
-                             and fsampling.supported_by_kernel(flow)) else None
-    if w_max is None:
-        w_max = estimate_wmax(flow, model, f, generator, safety=1.05,
-                              quantile=wmax_quantile, method=method)
-    draw = _make_draw(flow, model, batch, train, method)
+        if train:
+            raise ValueError("mesh= sharded unweighting is eval-mode only")
+
+        def draw_of(n):
+            return make_dp_sampler(flow, model, mesh, n, method)
+        if compact == "auto":
+            compact = False
+    else:
+        if method == "auto":
+            method = "fused" if (not train and model_device(model).type == "cuda"
+                                 and fsampling.supported_by_kernel(flow)) else None
+
+        def draw_of(n):
+            return _make_draw(flow, model, n, train, method)
+    if w_max is None:   # estimate_wmax's pilot
+        w_max = _reference_weight(draw_of(100_000), f, generator, wmax_quantile) * 1.05
+    draw = draw_of(batch)
 
     out, out_w, n_acc, n_prop, n_over = [], [], 0, 0, 0
     capacity = None

@@ -4,9 +4,10 @@ Counterpart of ``nf_tpu.training.vegas``, the baseline the reference
 benchmarks NIS against (reference utils/experiment_mgv.py:37-40): G.P.
 Lepage's per-dimension adaptive grid, damped importance redistribution and
 the inverse-variance combination of iterations, computed on the device of
-the integrator.  The per-bin importance is one ``index_add_``; on a CUDA
-device that sum uses atomics, so float64 edges may differ from run to run
-in the last bits.
+the integrator.  The per-bin importance is a one-hot matrix product in
+float64 (:func:`bin_sums`), which sums in a fixed order, so a repeat gives
+the same edges bit for bit (an ``index_add_`` would accumulate many samples
+into one bin with atomics on a CUDA device).
 
 The latents come from the integrator's ``torch.Generator`` through the
 module-level :func:`_uniform` (a hook: tests replay nf_tpu's draws through
@@ -21,6 +22,24 @@ import torch
 
 def _uniform(generator, shape, dtype, device):
     return torch.rand(shape, generator=generator, dtype=dtype, device=device)
+
+
+_CHUNK = 1 << 16
+
+
+def bin_sums(iy, w, n_bins):
+    """``[D, n_bins]`` float64 sums of ``w [B]`` over the samples in each bin
+    of each dimension (``iy [B, D]``): one-hot matrix products over chunks of
+    ``_CHUNK`` samples (a one-hot chunk of ``_CHUNK D n_bins`` float64),
+    accumulated in order."""
+    D = iy.shape[1]
+    bins = torch.arange(n_bins, device=iy.device)
+    w = w.to(torch.float64)
+    acc = torch.zeros(D * n_bins, dtype=torch.float64, device=iy.device)
+    for s in range(0, iy.shape[0], _CHUNK):
+        onehot = (iy[s:s + _CHUNK, :, None] == bins).to(torch.float64)
+        acc += w[s:s + _CHUNK] @ onehot.reshape(-1, D * n_bins)
+    return acc.reshape(D, n_bins)
 
 
 class VegasIntegrator:
@@ -91,20 +110,16 @@ class VegasIntegrator:
     def run(self, f, nitn=10, neval=10000):
         """Adaptive integration; returns ``(mean, sdev)`` combined over the
         iterations on the host.  ``f`` maps ``x [neval, D]`` to ``[neval]``."""
-        nb, D = self.n_bins, self.n_dim
-        offsets = torch.arange(D, device=self.device) * nb
         means, variances = [], []
         for _ in range(nitn):
-            y = _uniform(self._gen, (neval, D), self.dtype, self.device)
+            y = _uniform(self._gen, (neval, self.n_dim), self.dtype, self.device)
             x, jac, iy = self._map(self.edges, y)
             fx = f(x) * jac
             means.append(torch.mean(fx))
             variances.append(torch.var(fx) / neval)
             # per-bin importance: the sum of (f jac)^2 per bin and dim
-            w2 = (fx ** 2)[:, None].expand(neval, D)
-            d_acc = torch.zeros(D * nb, dtype=self.dtype, device=self.device).index_add_(
-                0, (iy + offsets).reshape(-1), w2.reshape(-1))
-            self.edges = self._refine(self.edges, d_acc.reshape(D, nb))
+            d_acc = bin_sums(iy, fx ** 2, self.n_bins).to(self.dtype)
+            self.edges = self._refine(self.edges, d_acc)
         means = np.asarray(torch.stack(means).tolist())
         variances = np.clip(np.asarray(torch.stack(variances).tolist()), 1e-300, None)
         inv = 1.0 / variances

@@ -162,10 +162,17 @@ def rqmc_integrate_device(eval_mean, n_flow, nitn, neval, seed, device):
     gen = make_device_sobol(n_flow, scramble=True)
     means = torch.stack([eval_mean(gen(n, (seed + _GOLDEN * r) & _MASK, device))
                          for r in range(nitn)])
-    err = torch.std(means, correction=1) / math.sqrt(nitn) if nitn > 1 \
+    return (*rqmc_result(means), n)
+
+
+def rqmc_result(means):
+    """``(sig, sig_err)`` floats of the replication means ``[reps]`` (a
+    tensor): their mean and standard error (inf for one), read in one sync."""
+    reps = means.shape[0]
+    err = torch.std(means, correction=1) / math.sqrt(reps) if reps > 1 \
         else torch.full_like(means[0], math.inf)
     sig, err = torch.stack([torch.mean(means), err]).tolist()
-    return sig, err, n
+    return sig, err
 
 
 def rqmc_integrate(eval_mean, n_flow, nitn, neval, seed, dtype=np.float64):

@@ -75,6 +75,30 @@ def test_adamax_matches_nf_tpu():
         np.testing.assert_allclose(pt[k].detach().numpy(), np.asarray(pj[k]), rtol=1e-10)
 
 
+@pytest.mark.parametrize("weight_decay", [0.0, 1e-4])
+def test_adam_matches_nf_tpu(weight_decay):
+    """torch.optim.Adam, with and without L2 weight decay, == nf_tpu's
+    ``optimizers.adam`` over three updates in float64."""
+    rng = np.random.RandomState(1)
+    p0 = {"a": rng.standard_normal(5), "b": rng.standard_normal((2, 3))}
+    grads = [{k: rng.standard_normal(v.shape) * 10.0 ** -i for k, v in p0.items()}
+             for i in range(3)]
+    opt_j = joptim.adam(2e-3, weight_decay)
+    pj = jax.tree.map(jnp.asarray, p0)
+    state = opt_j.init(pj)
+    pt = {k: torch.tensor(v, requires_grad=True) for k, v in p0.items()}
+    opt_t = toptim.adam(2e-3, weight_decay)(list(pt.values()))
+    for g in grads:
+        upd, state = opt_j.update(jax.tree.map(jnp.asarray, g), state, pj)
+        pj = jax.tree.map(lambda a, u: a + u, pj, upd)
+        for k in pt:
+            pt[k].grad = torch.tensor(g[k])
+        opt_t.step()
+    for k in p0:
+        assert not np.allclose(pt[k].detach().numpy(), p0[k])
+        np.testing.assert_allclose(pt[k].detach().numpy(), np.asarray(pj[k]), rtol=1e-12)
+
+
 def _jax_epoch(flow, params, state, ws, preburn, maxf, loss_mode):
     """One epoch written from nf_tpu's parts (manager.py:466-539)."""
     optimizer = joptim.adamax(2e-3, 1e-4)
@@ -223,7 +247,7 @@ def test_early_stop_runs_the_tail_integration():
 
 
 @pytest.mark.parametrize("kwargs", [
-    {"mesh": object()}, {"epochs_per_sync": 4}, {"epochs_per_sync": "auto"},
+    {"epochs_per_sync": 2}, {"epochs_per_sync": 4}, {"epochs_per_sync": "auto"},
 ])
 def test_unported_arguments_raise(manager, kwargs):
     with pytest.raises(NotImplementedError, match=next(iter(kwargs))):
@@ -255,10 +279,13 @@ def test_logging_and_resume_arguments_work(tmp_path, arg):
 
 
 def test_unported_endpoint_options_raise(manager):
-    with pytest.raises(NotImplementedError, match="mesh"):
-        manager.integrate(camel_t, 2, 100, mesh=object())
-    with pytest.raises(NotImplementedError, match="mesh"):
-        manager.sample(10, mesh=object())
+    """``mesh`` is ported (tests/test_torch_parallel.py); what it still
+    refuses is the train-mode forward, which needs one replica's batch
+    statistics."""
+    with pytest.raises(ValueError, match="eval-mode only"):
+        manager.integrate(camel_t, 2, 100, mesh=object(), method="reference")
+    with pytest.raises(ValueError, match="eval-mode only"):
+        manager.sample(10, mesh=object(), train=True)
 
 
 def _nf_tpu_latents(key, n_flow, mb, n_mb, epochs, stats_every=None):

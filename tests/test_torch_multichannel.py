@@ -43,6 +43,7 @@ from nf_tpu_torch.phasespace import lorentz as tl
 from nf_tpu_torch.phasespace import topology as ttopo
 from nf_tpu_torch.training import multichannel as mc
 from nf_tpu_torch.training import optimizers
+from test_torch_parallel import world_of_one  # noqa: F401 (fixture)
 
 torch.set_num_threads(1)
 E = 400.0
@@ -450,11 +451,28 @@ def test_partial_sample_carries_every_channel(flows, stratified, monkeypatch, qu
         assert sum(s for s, _ in got) < 0.5 * sum(s for s, _ in stratified)
 
 
-def test_entry_points():
-    with pytest.raises(NotImplementedError, match="A7"):
-        mc.mixture_weights(CH_T, mc.build_channel_flows(torch.Generator(), CH_T, 2, 4, [8],
-                                                        device="cpu"),
-                           me_t, E, torch.Generator(), 8, ALPHAS, mesh=object())
+def test_entry_points(world_of_one):
+    """``mesh`` is ported: on a world of one the mixture and two training
+    epochs are the single-device run's, bit for bit (the two-process run is
+    in tests/test_torch_dp.py)."""
+    models = mc.build_channel_flows(torch.Generator().manual_seed(1), CH_T, 2, 4, [8],
+                                    dtype=torch.float64, device="cpu")
+    got = mc.mixture_weights(CH_T, models, me_t, E, torch.Generator().manual_seed(2), 8, ALPHAS,
+                             mesh=world_of_one, with_kinematics=True, **CUTS)
+    ref = mc.mixture_weights(CH_T, models, me_t, E, torch.Generator().manual_seed(2), 8, ALPHAS,
+                             with_kinematics=True, **CUTS)
+    assert torch.equal(got[0], ref[0]) and got[1].keys() == ref[1].keys()
+    assert all(torch.equal(got[1][k], ref[1][k]) for k in ref[1])
+    kw = dict(alphas=list(ALPHAS), batch_per_channel=16, mini_batch_per_channel=8, epochs=2,
+              loss_mode="var", **CUTS)
+    out = [mc.train_multichannel(CH_T, models, me_t, E, optimizers.adamax(5e-3, 1e-4),
+                                 torch.Generator().manual_seed(3), mesh=mesh, **kw)
+           for mesh in (world_of_one, None)]
+    for name in out[1]["history"]:
+        assert np.array_equal(out[0]["history"][name], out[1]["history"][name])
+    for a, b in zip(out[0]["params"], out[1]["params"]):
+        assert all(torch.equal(x, y) for x, y in zip(a.state_dict().values(),
+                                                      b.state_dict().values()))
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             mc.build_channel_flows(torch.Generator(), CH_T, 2, 4, [8])

@@ -22,6 +22,7 @@ import torch
 from nf_tpu.training import unweight as junweight
 from nf_tpu_torch import PWQuadManager
 from nf_tpu_torch.training import unweight
+from test_torch_parallel import world_of_one  # noqa: F401 (fixture)
 
 torch.set_num_threads(1)
 N_FLOW = 2
@@ -191,7 +192,7 @@ def manager():
 
 
 @pytest.mark.parametrize("method", ["auto", "fused", "folded"])
-def test_generate_unweighted_on_a_model(manager, method):
+def test_generate_unweighted_on_a_model(manager, world_of_one, method):
     """The real draws on a CPU model: ``"auto"`` is the stateful forward
     there, ``"fused"`` the kernel's plain version with a fresh Philox seed a
     batch, so no proposal repeats across batches; events lie in [0, 1]^2 and
@@ -205,6 +206,16 @@ def test_generate_unweighted_on_a_model(manager, method):
     assert ((events >= 0) & (events <= 1)).all()
     assert 0 < eff <= 1 and n_over >= 0
     assert np.unique(events, axis=0).shape[0] == events.shape[0]
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # under a mesh (a world of one) the same draws give the same events;
+    # "auto" is the folded forward there and compaction is off
+    kw = dict(n_events=500, batch=512, wmax_quantile=0.95)
+    ref = unweight.generate_unweighted(
+        manager._flow, manager.best_model, camel_t, torch.Generator().manual_seed(5),
+        method="folded" if method == "auto" else method, compact=False, **kw)
+    got = unweight.generate_unweighted(
+        manager._flow, manager.best_model, camel_t, torch.Generator().manual_seed(5),
+        method=method, mesh=world_of_one, **kw)
+    assert np.array_equal(got[0], ref[0]) and got[1:] == ref[1:]
+    with pytest.raises(ValueError, match="eval-mode only"):
         unweight.generate_unweighted(manager._flow, manager.best_model, camel_t, gen, 10,
-                                     mesh=object())
+                                     train=True, mesh=world_of_one)
