@@ -56,6 +56,11 @@ mixture under ``mesh=`` against their single-device runs (bit for bit where
 the arithmetic is the same), the sampler's per-rank counter offsets against
 one launch, two ranks on the card over gloo against one process, and the
 paired times of the mesh paths and the collectives a minibatch makes.
+Phase 17 drives the chunked epoch cadence (``epochs_per_sync`` > 1 and
+``"auto"``): each epoch and each statistics refresh a replayed CUDA graph,
+held against the same chunk run eagerly (bit for bit, launch counts too)
+and against the per-epoch run, stops inside a chunk, bench.py's stale
+stages at ``epochs_per_sync=6``, paired epoch times and device profiles.
 Prints one ``{"kernels": [...]}`` line;
 the last line of standard output is ``{"ok": true, "device": {...}}``; any
 failed check exits non-zero before it is printed.  Exits non-zero at once
@@ -1647,6 +1652,256 @@ def phase16(dev, card, NF):
     return launches
 
 
+# ---- phase 17: the chunked epoch cadence (epochs_per_sync > 1 or "auto"):
+# each epoch and each statistics refresh a replayed CUDA graph, the state
+# machine on the device, one read a chunk
+P17_CAMEL = (10000, 2000, 150)          # the camel main path: batch, minibatch, epochs
+P17_STAGES = (6, 6)                     # bench.py:335,388: epochs, epochs_per_sync
+P17_KILL = (2000, 1000, 60)             # the forced stop: batch, minibatch, epochs
+# The graph chunk against the per-epoch run: the relative difference of their
+# loss histories over the first P17_HIST[0] epochs.  The capturable optimizer
+# computes Adamax's bias correction on the device in float32 where the
+# per-epoch one takes it from the host in float64
+# (training/optimizers.set_capturable): a rounding of the step size, ~1e-7
+# relative a step, which moved the losses by 2-4e-7 over 60 epochs on the card
+# (PERF.md §6).  Later the two trajectories part as any two runs whose
+# parameters differ by rounding do (1.2e-2 by epoch 150 for the batch
+# trainer): there the best and the stop epochs are held, and the difference
+# printed.
+P17_HIST = (60, 1e-5)
+
+
+def same_run(a, b):
+    """What two managers' runs left, bit for bit: ``(equal, what differs)``."""
+    import torch
+    diffs = []
+    if a.history != b.history:
+        diffs.append("history")
+    if (a.best_epoch, a._last_epoch) != (b.best_epoch, b._last_epoch):
+        diffs.append("best/last epoch")
+    for name, x, y in (("model", a._model, b._model), ("best model", a.best_model, b.best_model)):
+        if state_digest(x) != state_digest(y):
+            diffs.append(name)
+    sa, sb = a._optimizer.state_dict()["state"], b._optimizer.state_dict()["state"]
+    if sa.keys() != sb.keys() or any(
+            not torch.equal(sa[i][n].cpu(), sb[i][n].cpu()) for i in sa for n in sa[i]):
+        diffs.append("optimizer state")
+    if not torch.equal(a._gen.get_state(), b._gen.get_state()):
+        diffs.append("generator")
+    return not diffs, diffs
+
+
+def phase17(dev, card, gen, hold_train):
+    """The chunked cadence on the card, checks 1-5 (``phase17 check N``).
+    Returns the training kernels' launches (forward, backward) on its main
+    paths: the graph chunks of check 1 and bench.py's stale stages of check 2,
+    each counted from 0 just before it; and the kernels' max abs errors
+    against their plain versions (``hold_train``) at the shapes those paths
+    launch."""
+    import numpy as np
+    import torch
+
+    from nf_tpu_torch import PWQuadManager
+    from nf_tpu_torch.ops import pwquad_train as pt
+    from nf_tpu_torch.training import optimizers
+
+    exact = camel_exact()
+    t_phase = time.perf_counter()
+    launches, errors = [0, 0], [0.0, 0.0]
+
+    def flat_f(x):
+        return torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
+
+    def trained(n_flow, seed, args, kwargs, f, graphs=None, lr=2e-3, **kw):
+        NF = PWQuadManager(n_flow=n_flow, seed=seed, device=dev)
+        NF.create_model(*args, **kwargs)
+        run_kw = dict(log=False, integrate=False, pretty_progressbar=False, stats_every=4)
+        run_kw.update(kw)
+        pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        NF._train_variance_forward_seq(f, optimizers.adamax(lr, 1e-4), _graphs=graphs, **run_kw)
+        torch.cuda.synchronize()
+        return NF, time.perf_counter() - t0, (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES)
+
+    def count(n):
+        launches[0] += n[0]
+        launches[1] += n[1]
+
+    def hold(what, NF, sizes):
+        """The training kernels against their plain versions on ``NF``'s
+        trained, folded flow at the path's minibatch and refresh sizes."""
+        plan, flat = pt.TrainPlan(NF._flow), pt.fold_flow(NF._model).detach()
+        for n in sorted(set(sizes)):
+            e = hold_train(f"{what} trained n={n}", plan, flat,
+                           torch.rand((n, NF.n_flow), generator=gen, device=dev),
+                           tag="phase17")
+            errors[0], errors[1] = max(errors[0], e[0]), max(errors[1], e[1])
+
+    camel_model = ((2, 4, [3] * 3), {})
+    batch, mini, epochs = P17_CAMEL
+    main_kw = dict(batch_size=batch, mini_batch_size=mini, epochs=epochs, preburn_time=20)
+
+    # ---- check 1: the camel main path at "auto", each trainer: the graph
+    # chunk against the eager chunk (the same capturable optimizer) bit for
+    # bit, against the per-epoch run within P17_HIST with the same best and
+    # stop epochs, and its integral against the analytic value
+    runs = {}
+    for bn in ("batch", "stale"):
+        g, g_s, g_n = trained(2, 0, *camel_model, camel, epochs_per_sync="auto", bn_stats=bn,
+                              **main_kw)
+        count(g_n)
+        e, e_s, e_n = trained(2, 0, *camel_model, camel, graphs=False, epochs_per_sync="auto",
+                              bn_stats=bn, **main_kw)
+        p, p_s, p_n = trained(2, 0, *camel_model, camel, epochs_per_sync=1, bn_stats=bn,
+                              **main_kw)
+        runs[bn] = (g, p)
+        equal, diffs = same_run(g, e)
+        rel = np.abs(np.array(g.history) / np.array(p.history) - 1)
+        hist, hist_all = float(rel[:P17_HIST[0]].max()), float(rel.max())
+        param = max(float((x - y).abs().max()) for x, y in
+                    zip(g._model.state_dict().values(), p._model.state_dict().values()))
+        sig, err = g.integrate(camel, 8, 1 << 21)
+        ran = g._last_epoch + 1
+        print(f"phase17 check 1 camel {bn} (batch {batch} in {mini}, {epochs} epochs, auto: "
+              f"chunks of {g._bench[6]['k0']}): {ran} epochs, best {g.best_epoch}; graph chunk vs "
+              f"eager chunk {'bit for bit' if equal else diffs}, launches fwd/bwd {g_n} / {e_n}; "
+              f"vs per-epoch: stop {p._last_epoch + 1}, best {p.best_epoch}, history max rel "
+              f"diff {hist:.3e} over the first {P17_HIST[0]} epochs ({hist_all:.3e} over all), "
+              f"parameters max |d| {param:.3e}; integral {sig:.6f} +- {err:.2e} "
+              f"(exact {exact:.6f}); train wall {g_s:.2f} / {e_s:.2f} / {p_s:.2f} s (graph / "
+              f"eager / per-epoch) = {g_s / ran * 1e3:.3f} / {e_s / ran * 1e3:.3f} / "
+              f"{p_s / (p._last_epoch + 1) * 1e3:.3f} ms an epoch {card}")
+        check(equal and g_n == e_n, f"camel {bn}: graph chunk equals the eager chunk")
+        check((g._last_epoch, g.best_epoch) == (p._last_epoch, p.best_epoch),
+              f"camel {bn}: the chunk stops and takes its best where the per-epoch run does")
+        check(hist <= P17_HIST[1], f"camel {bn}: the first {P17_HIST[0]} epochs' losses within "
+              f"{P17_HIST[1]:g} of the per-epoch run's")
+        check(math.isfinite(sig) and err > 0 and abs(sig - exact) <= 5 * err + 0.01 * exact,
+              f"camel {bn} chunked: |sig - exact| <= 5 err + 1%")
+        if bn == "stale":
+            refreshes = sum(1 for i in range(ran) if i % 4 == 0)
+            check(g_n == (ran * batch // mini + refreshes, ran * batch // mini),
+                  f"camel stale graph chunk launched fwd/bwd {g_n}")
+        # the minibatch and the refresh batch (min(minibatch, 2^16)) alike
+        hold(f"chunked camel {bn}", g, (mini, min(mini, 1 << 16)))
+
+    # ---- check 2: bench.py's stale stages at epochs_per_sync=6: launches;
+    # the graph run against the eager chunk's run (the same capturable
+    # optimizer) bit for bit; then on copies of their trained states, a chunk
+    # of the graph runner (its epochs after the first are replays) against
+    # the same epochs launched eagerly, with host syncs made errors, bit for
+    # bit; and the kernels against their plain versions at the stage's sizes
+    n_ep, k_sync = P17_STAGES
+    stages = {}
+    for name, n_flow, args, kwargs, b, m, f, seed in (
+            ("camel2d batch 1M", 2, (2, 4, [3] * 3), {}, 1_000_000, 1_000_000, camel, 3),
+            ("flagship10d_rank4 batch 2^20 / 2^18", 10, (8, 8, [16, 16]), {"final_rank": 4},
+             1 << 20, 1 << 18, flat_f, 4)):
+        stage_kw = dict(batch_size=b, mini_batch_size=m, epochs=n_ep, preburn_time=0,
+                        epochs_per_sync=k_sync, bn_stats="stale")
+        torch.cuda.reset_peak_memory_stats()
+        NF, _, n = trained(n_flow, seed, args, kwargs, f, **stage_kw)
+        peak = torch.cuda.max_memory_allocated()
+        count(n)
+        stages[name] = NF
+        mbs = n_ep * (b // m)
+        expected = (mbs + sum(1 for i in range(n_ep) if i % 4 == 0), mbs)
+        check(n == expected, f"{name}: chunked stale stage launched fwd/bwd {n}, not {expected}")
+        NF_e, _, n_e = trained(n_flow, seed, args, kwargs, f, graphs=False, **stage_kw)
+        equal, diffs = same_run(NF, NF_e)
+        check(equal and n == n_e, f"{name}: graph stage run equals the eager chunk's run")
+        out = []
+        for mgr in (NF, NF_e):
+            runner, k, init = mgr._bench_chunk(seed=77)
+            pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = 0
+            if runner.graphs:
+                rows = runner.run(0, k, init)
+            else:
+                torch.cuda.synchronize()
+                torch.cuda.set_sync_debug_mode("error")
+                try:
+                    rows = runner.run(0, k, init)
+                finally:
+                    torch.cuda.set_sync_debug_mode(0)
+            torch.cuda.synchronize()
+            out.append((rows.cpu(), state_digest(runner.model),
+                        [t.cpu() for t in runner._opt_tensors()],
+                        (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES)))
+        (rows_g, dig_g, opt_g, n_g), (rows_e, dig_e, opt_e, n_e) = out
+        same = (torch.equal(rows_g, rows_e) and dig_g == dig_e and n_g == n_e
+                and all(torch.equal(a, b) for a, b in zip(opt_g, opt_e)))
+        print(f"phase17 check 2 {name}: stale stage at epochs_per_sync={k_sync} launched fwd/bwd "
+              f"{n} (peak memory {peak / 2**30:.2f} GiB), against the eager chunk's run "
+              f"{'bit for bit' if equal else diffs}; a chunk of {k} epochs, {k - 1} of them "
+              f"replays: rows, parameters, buffers and optimizer state "
+              f"{'bit for bit' if same else 'DIFFER'} against eager launches (no host sync "
+              f"there), launches {n_g} / {n_e} {card}")
+        check(same, f"{name}: graph replays equal eager launches")
+        hold(f"{name} stage", NF, (m, min(m, 1 << 16)))
+
+    # ---- check 3: a stop by the kill counter inside a chunk.  The chunk
+    # length is the per-epoch run's stop + 2, so the stop falls inside the
+    # first chunk.  At lr 0 the capturable and the per-epoch step round
+    # alike, and the chunk leaves the per-epoch run's state bit for bit; at
+    # lr 2e-3 it leaves the state of the chunked run whose budget ends at the
+    # stop (tests/test_resume.py:82)
+    b, m, n_ep = P17_KILL
+    for bn in ("stale", "batch"):
+        kill_kw = dict(batch_size=b, mini_batch_size=m, epochs=n_ep, preburn_time=0,
+                       kill_counter=1, bn_stats=bn, integrate=True)
+        p, _, _ = trained(2, 6, *camel_model, camel, lr=0.0, epochs_per_sync=1, **kill_kw)
+        s = p._last_epoch
+        g, _, _ = trained(2, 6, *camel_model, camel, lr=0.0, epochs_per_sync=s + 2, **kill_kw)
+        equal0, diffs0 = same_run(g, p)
+        # (no tail integration here: the run that ends at the stop has none)
+        kill_kw["integrate"] = False
+        p2, _, _ = trained(2, 6, *camel_model, camel, epochs_per_sync=1, **kill_kw)
+        s2 = p2._last_epoch
+        a, _, _ = trained(2, 6, *camel_model, camel, epochs_per_sync=s2 + 2, **kill_kw)
+        c, _, _ = trained(2, 6, *camel_model, camel, epochs_per_sync=s2 + 2,
+                          **dict(kill_kw, epochs=a._last_epoch + 1, kill_counter=10_000))
+        equal2, diffs2 = same_run(a, c)
+        print(f"phase17 check 3 camel {bn}: lr 0: per-epoch stop at {s}, chunks of {s + 2}: "
+              f"{'bit for bit' if equal0 else diffs0}; lr 2e-3: per-epoch stop {s2}, chunked "
+              f"stop {a._last_epoch} (chunks of {s2 + 2}) against the chunked run of "
+              f"{a._last_epoch + 1} epochs: {'bit for bit' if equal2 else diffs2}")
+        check(s < n_ep - 1 and equal0, f"{bn}: mid-chunk kill stop leaves the per-epoch state")
+        check(a._last_epoch == s2 < n_ep - 1 and equal2,
+              f"{bn}: mid-chunk kill stop leaves the state of the run that ends there")
+
+    # ---- check 4: times, paired P/C/C/P (benchmark_train_step, CUDA
+    # events): per-epoch against chunked, camel at batch 10000 (check 1's
+    # runs) and the flagship stale stage (check 2's, against a per-epoch run
+    # of it); then the chunked stale trainers' device profiles
+    flag_p, _, _ = trained(10, 4, (8, 8, [16, 16]), {"final_rank": 4}, flat_f,
+                           batch_size=1 << 20, mini_batch_size=1 << 18, epochs=n_ep,
+                           preburn_time=0, epochs_per_sync=1, bn_stats="stale")
+    pairs = ((f"camel batch {batch} in {mini} bn_stats=batch", *runs["batch"][::-1], 11),
+             (f"camel batch {batch} in {mini} bn_stats=stale", *runs["stale"][::-1], 11),
+             ("flagship10d_rank4 stale 2^20 / 2^18", flag_p,
+              stages["flagship10d_rank4 batch 2^20 / 2^18"], 5))
+    for what, per_epoch, chunked, reps in pairs:
+        ms = [m.benchmark_train_step(reps=reps)[0] * 1e3
+              for m in (per_epoch, chunked, chunked, per_epoch)]
+        print(f"phase17 check 4 {what} epoch: per-epoch {ms[0]:.3f} / {ms[3]:.3f} ms, chunked "
+              f"(chunks of {chunked._bench[6]['k0']}) {ms[1]:.3f} / {ms[2]:.3f} ms (CUDA events, "
+              f"P/C/C/P) {card}")
+    for what, mgr in ((f"camel stale trainer, batch {batch} in {mini}", runs["stale"][0]),
+                      ("flagship stale trainer, batch 2^20 / 2^18",
+                       stages["flagship10d_rank4 batch 2^20 / 2^18"])):
+        runner, k, init = mgr._bench_chunk()
+        runner.run(0, k, init).tolist()       # the captures, outside the profile
+        device_profile("phase17 check 4", f"chunked {what}, one chunk of {k} epochs",
+                       lambda: runner.run(0, k, init).tolist(), card)
+
+    # ---- check 5: memory and the phase's time
+    print(f"phase17 check 5: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+          f"GiB since check 2's flagship stage; phase 17 {time.perf_counter() - t_phase:.1f} s "
+          f"{card}")
+    return launches, errors
+
+
 def main():
     import numpy as np
     import torch
@@ -2323,6 +2578,9 @@ def main():
     # ---- phase 16: data parallelism
     dp_launches = phase16(dev, card, NF)
 
+    # ---- phase 17: the chunked epoch cadence
+    chunk_launches, chunk_err = phase17(dev, card, gen, hold_train)
+
     camel_t = timings["camel2d_trained"]
     camel_tt = train_t["camel2d_trained"]
     src = "nf_tpu_torch/ops/csrc/pwquad_train.cu"
@@ -2345,8 +2603,8 @@ def main():
         "source": src,
         "replaces": "nf_tpu/ops/pwquad_train.py:608",
         "launches": train_launches[0] + zz_launches[1] + mc_launches[1] + ex_launches[1]
-        + dp_launches[1],
-        "max_abs_err": max(train_err[0], zz_err[1], mc_err[1], ex_err[1]),
+        + dp_launches[1] + chunk_launches[0],
+        "max_abs_err": max(train_err[0], zz_err[1], mc_err[1], ex_err[1], chunk_err[0]),
         "ms": camel_tt["fwd_kernel_ms"],
         "plain_ms": camel_tt["fwd_plain_ms"],
         "bound_ms": bounds["camel2d_trained", "fwd"][0],
@@ -2358,8 +2616,8 @@ def main():
         "source": src,
         "replaces": "nf_tpu/ops/pwquad_train.py:681",
         "launches": train_launches[1] + zz_launches[2] + mc_launches[2] + ex_launches[2]
-        + dp_launches[2],
-        "max_abs_err": max(train_err[1], zz_err[2], mc_err[2], ex_err[2]),
+        + dp_launches[2] + chunk_launches[1],
+        "max_abs_err": max(train_err[1], zz_err[2], mc_err[2], ex_err[2], chunk_err[1]),
         "ms": camel_tt["bwd_kernel_ms"],
         "plain_ms": camel_tt["bwd_plain_ms"],
         "bound_ms": bounds["camel2d_trained", "bwd"][0],

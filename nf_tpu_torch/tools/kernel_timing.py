@@ -5,14 +5,15 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
     python3 nf_tpu_torch/tools/kernel_timing.py ptxas [--tree DIR]
         nvcc -Xptxas -v on every csrc/*.cu of the tree: registers, stack, spills per kernel
-    python3 nf_tpu_torch/tools/kernel_timing.py time [--tree DIR]
+    python3 nf_tpu_torch/tools/kernel_timing.py time [--tree DIR] [--trainers]
         kernel and trainer timings of the nf_tpu_torch found in DIR (default:
         this checkout) on camel-2D, the 10-D flagship and create_model(2, 4,
         [128, 128]) (the workspace backward), the training wrappers' host
         time per call, a digest of the training kernels' outputs (equal
         digests: the same bits), the flagship stale epoch and the camel-2D
-        trainers' epochs at batch 10000, one JSON line
-    python3 nf_tpu_torch/tools/kernel_timing.py pair DIR_A DIR_B DIR_B DIR_A
+        trainers' epochs at batch 10000, one JSON line; with ``--trainers``
+        the trainers only
+    python3 nf_tpu_torch/tools/kernel_timing.py pair DIR_A DIR_B DIR_B DIR_A [--trainers]
         ``time`` for each tree in turn, each in its own process (each builds
         its own kernel library), on the same card; one JSON line per tree
     python3 nf_tpu_torch/tools/kernel_timing.py sweep [--tree DIR]
@@ -169,8 +170,9 @@ def _models(torch, dev):
     return models, gen
 
 
-def time_tree(tree):
-    """Kernel and trainer timings of the nf_tpu_torch in ``tree``."""
+def time_tree(tree, trainers_only=False):
+    """Kernel and trainer timings of the nf_tpu_torch in ``tree``; the
+    trainers' only with ``trainers_only``."""
     sys.path.insert(0, os.path.abspath(tree))
     import torch
     import nf_tpu_torch
@@ -190,8 +192,8 @@ def time_tree(tree):
     models["wide128"] = _perturb(torch, factory.build_pwquad_flow(
         wide_gen, 2, 2, 4, (128, 128), device=dev), wide_gen, dev)
     out = {"tree": tree, "package": os.path.dirname(nf_tpu_torch.__file__), "card": card()}
-    for name, n_train in (("camel2d", 1 << 20), ("flagship10d_rank4", 1 << 18),
-                          ("wide128", 1 << 18)):
+    for name, n_train in () if trainers_only else (
+            ("camel2d", 1 << 20), ("flagship10d_rank4", 1 << 18), ("wide128", 1 << 18)):
         model = models[name]
         flow = model.flow
         plan = pt.TrainPlan(flow)
@@ -338,6 +340,8 @@ def main():
     parser.add_argument("mode", choices=("ptxas", "time", "pair", "sweep"))
     parser.add_argument("trees", nargs="*")
     parser.add_argument("--tree", default=ROOT)
+    parser.add_argument("--trainers", action="store_true",
+                        help="time and pair: the trainers only, no kernel timings")
     args = parser.parse_args()
     if args.mode == "ptxas":
         return ptxas(args.tree)
@@ -347,13 +351,13 @@ def main():
         print("kernel_timing: no CUDA device", file=sys.stderr)
         return 1
     if args.mode == "time":
-        return time_tree(args.tree)
+        return time_tree(args.tree, args.trainers)
     if args.mode == "sweep":
         return sweep(args.tree)
     rc = 0
     for tree in args.trees:
         rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "time",
-                              "--tree", tree]).returncode
+                              "--tree", tree] + ["--trainers"] * args.trainers).returncode
     return rc
 
 

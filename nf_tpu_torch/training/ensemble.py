@@ -51,6 +51,7 @@ from torch.func import functional_call, grad_and_value, vmap
 from nf_tpu_torch import interop
 from nf_tpu_torch.bijectors.batchnorm import BatchNorm, collect_running_stats
 from nf_tpu_torch.flows.model import FlowModel
+from nf_tpu_torch.training.chunk import advance
 
 # Test hook: a group wider than this raises torch.cuda.OutOfMemoryError
 # before it runs, so the tests reach the halving retry without a real fault.
@@ -193,20 +194,13 @@ def _group_runner(flow, f, optimizer, generator, mb, n_mb, epochs, preburn_time,
             ess = integ_e ** 2 / torch.clamp_min(torch.mean(torch.stack(qis), dim=0), 1e-300)
 
             # the state machine (nf_tpu ensemble.py:253-276)
-            metric = ess if by_ess else loss
-            improved = ~pre & ~killed & ((ess > b_metric) if by_ess else (loss < b_metric))
-            b_metric = torch.where(improved, metric, b_metric)
+            improved, b_metric, counter, killed, pre = advance(
+                pre, killed, counter, last_loss, b_metric, loss, ess, i, int_loss,
+                by_ess=by_ess, kill_counter=kill_counter, preburn_time=preburn_time)
+            last_loss = loss
             with torch.no_grad():
                 bP = {k: _where(improved, P[k], v) for k, v in bP.items()}
                 bB = {k: _where(improved, B[k], v) for k, v in bB.items()}
-            counter = torch.where(loss < last_loss, 0, counter + 1)
-            overflow = counter > kill_counter
-            end_pre_kill = overflow & pre
-            killed = killed | (overflow & ~pre)
-            counter = torch.where(end_pre_kill, 0, counter)
-            pre = pre & ~end_pre_kill
-            last_loss = loss
-            pre = pre & ~((loss < 0.25 * int_loss) | (i > preburn_time))
             for name, v in zip(series, (loss, integ_e, err_e, killed, improved)):
                 series[name].append(v)
 

@@ -8,8 +8,26 @@ preburn, ``maxf`` normalization, the early-stop state machine, the tail
 integration and the inverse-variance combination replicate nf_tpu, which
 replicates the reference.  Variances are *unbiased* throughout (torch.var).
 
-The trainer runs at the per-epoch cadence (nf_tpu's ``epochs_per_sync=1``):
-one host sync per epoch, for the scalars the state machine needs.
+The trainer runs at nf_tpu's two cadences.  ``epochs_per_sync=1`` (the
+port's default) is the per-epoch one: one host sync per epoch, for the
+scalars the host state machine needs.  An int ``k > 1``, or ``"auto"`` (``k``
+= the stale check's period, ``preburn_time`` if above 10, else 50: nf_tpu's
+default), runs chunks of ``k`` epochs to one host read, with the state
+machine on the device (:mod:`nf_tpu_torch.training.chunk`): on the card
+without a mesh each epoch and each statistics refresh is a replayed CUDA
+graph, with the optimizer made capturable; on the CPU and under ``mesh`` the
+chunk runs eagerly (NCCL is not captured), every decision read from
+all-reduced values.  The host replays its state machine over each chunk's
+rows (bookkeeping, logging, ``progress_callback`` and the progress bar per
+epoch, at chunk cadence) and raises ``RuntimeError`` where the two disagree.
+A stop inside a chunk, by the kill counter or the host's stale check,
+replays the chunk from its start up to the stop epoch, so the model, the
+optimizer, the best snapshot and the generator are those of the stop.  A
+chunk draws its latents in the per-epoch order, so chunking changes no
+number: on the CPU a chunked run equals the per-epoch run bit for bit
+(nf_tpu's chunk draws other latents, through its key split).  On the card the
+capturable optimizer rounds its bias correction otherwise than the
+per-epoch one, so the two cadences agree there within that rounding.
 
 ``bn_stats="stale"`` is nf_tpu's stale-statistics trainer: within an epoch
 BatchNorm is folded into the weights with the running statistics held fixed
@@ -48,9 +66,6 @@ of the single-device run.  The stale trainer refreshes its statistics from
 the forward kernel's all-reduced batch sums on every world size (nf_tpu
 refreshes from a train-mode forward under a mesh).  Only the first rank
 writes files.
-
-Not ported yet, and refused with ``NotImplementedError``: ``epochs_per_sync``
-other than 1.
 """
 
 from __future__ import annotations
@@ -70,14 +85,20 @@ from nf_tpu_torch.parallel import sampling as psampling
 from nf_tpu_torch.parallel.dp import (all_reduce_max, all_reduce_sum, average_gradients,
                                       broadcast_replicas, global_mean, global_mean_var)
 from nf_tpu_torch.parallel.mesh import group_of, rank_and_size, shard_rows
+from nf_tpu_torch.training import chunk as tchunk
+from nf_tpu_torch.training.optimizers import set_capturable
 from nf_tpu_torch.utils import checkpoint
 
 
-def _not_ported(name, value):
-    raise NotImplementedError(f"{name}={value!r} is not ported to nf_tpu_torch yet")
+def _pick(pre, a, b):
+    """``a`` where ``pre`` else ``b``: ``torch.where`` for a 0-dim bool
+    tensor, the branch itself for a bool."""
+    if torch.is_tensor(pre):
+        return torch.where(pre, a, b)
+    return a if pre else b
 
 
-def epoch_step(model, optimizer, f, ws, preburn: bool, maxf, loss_mode: str,
+def epoch_step(model, optimizer, f, ws, preburn, maxf, loss_mode: str,
                pathwise: bool = False, forward=None, group=None):
     """One training epoch on the minibatches of latents ``ws``: the loss
     gradients of all minibatches, averaged, then one optimizer step.
@@ -89,6 +110,14 @@ def epoch_step(model, optimizer, f, ws, preburn: bool, maxf, loss_mode: str,
     batch's, from all-reduced sums (:func:`~nf_tpu_torch.parallel.dp
     .global_mean_var`, two all-reduces a minibatch and their two in the
     backward), and the gradients are averaged across ranks.
+
+    ``preburn`` is a bool or a 0-dim bool tensor on the latents' device:
+    the preburn and the normal loss are one expression whose branches
+    :func:`_pick` chooses, for a tensor with ``torch.where`` on the device,
+    so a chunk of epochs runs with no host branch
+    (:mod:`nf_tpu_torch.training.chunk`), for a bool on the host with no
+    launch (the per-epoch trainer).  ``f`` runs once, on the points picked;
+    a branch not taken adds nothing but zeros.
 
     Returns a tensor ``[loss, var, integ, err, ess]`` (still on the device),
     ``ess = mean(fres)^2 / mean(fres^2)`` over the minibatches.  Counterpart
@@ -102,29 +131,27 @@ def epoch_step(model, optimizer, f, ws, preburn: bool, maxf, loss_mode: str,
     ls, iis, eis, vis, qis = [], [], [], [], []
     for w in ws:
         x, jacv = forward(w)
-        if preburn:
-            # loss on LATENT points: flattens J against f before the map
-            # moves (reference manager.py:237-242)
-            fres = f(w)
-            fXJ = fres * jacv / maxf
-        else:
-            # the reference detaches the sample, so the gradient flows
-            # through J only; pathwise also differentiates f(x)
-            fres = f(x if pathwise else x.detach()) * jacv
-            fXJ = fres / maxf
-        var_loss = loss_mode == "var" or (loss_mode == "kl" and preburn)
-        if var_loss:
-            # kl mode keeps the variance loss during preburn: KL losses are
-            # negative, which would confuse the ratio-based preburn exit
+        # preburn: the loss on LATENT points, f(w) J, flattens J against f
+        # before the map moves (reference manager.py:237-242); else f(x) J,
+        # the sample detached as the reference does, so the gradient flows
+        # through J only; pathwise also differentiates f(x)
+        g = f(_pick(preburn, w, x if pathwise else x.detach()))
+        gj = g * jacv
+        fXJ = gj / maxf
+        fres = _pick(preburn, g, gj)
+        if loss_mode == "var":
             head = fXJ
         elif loss_mode == "kl":
-            # reweighted forward KL: -E_w[w_tilde log q(x)], log q = -log J
-            head = fXJ.detach() * torch.log(torch.clamp_min(jacv, 1e-30))
+            # reweighted forward KL: -E_w[w_tilde log q(x)], log q = -log J;
+            # kl mode keeps the variance loss during preburn: KL losses are
+            # negative, which would confuse the ratio-based preburn exit
+            head = _pick(preburn, fXJ, fXJ.detach() * torch.log(torch.clamp_min(jacv, 1e-30)))
         else:
             head = (fXJ * maxf) ** 2
         fres, fXJ = fres.detach(), fXJ.detach()
         means, var = global_mean_var(torch.stack([head, fres, fXJ ** 2, fres ** 2]), group)
-        loss = var[0] if var_loss else means[0]
+        loss = var[0] if loss_mode == "var" else \
+            _pick(preburn, var[0], means[0]) if loss_mode == "kl" else means[0]
         loss.backward()
         ls.append(loss.detach())
         iis.append(means[1].detach())
@@ -162,19 +189,6 @@ def refresh_bn_stats(plan, model, w, group=None):
                                            w.to(torch.float32), with_stats=True)[3]
         pwquad_train.stats_to_bn_state(model, all_reduce_sum(stats, group),
                                        w.shape[0] * rank_and_size(group)[1])
-
-
-def stale_epoch_step(model, plan, optimizer, f, ws, preburn, maxf, loss_mode,
-                     pathwise=False, refresh_w=None, group=None):
-    """One epoch of the stale-statistics trainer: :func:`epoch_step` through
-    :func:`stale_forward`, the BatchNorm statistics fixed, then, with
-    ``refresh_w``, one :func:`refresh_bn_stats` after the optimizer step.
-    ``group``: see :func:`epoch_step`."""
-    stats = epoch_step(model, optimizer, f, ws, preburn, maxf, loss_mode, pathwise,
-                       stale_forward(plan, model), group)
-    if refresh_w is not None:
-        refresh_bn_stats(plan, model, refresh_w, group)
-    return stats
 
 
 class BasicManager:
@@ -269,23 +283,37 @@ class BasicManager:
 
     @staticmethod
     def _epoch_runner(model, optimizer, uniform, f, maxf, loss_mode, pathwise, plan,
-                      stats_every, stats_batch, group):
-        """``run_epoch(i, preburn, ws) -> [loss, var, integ, err, ess]`` for global
-        epoch ``i`` on the global minibatches ``ws``: the batch-statistics step,
-        or with a :class:`TrainPlan` the stale one, refreshing the statistics
-        on latents drawn by ``uniform(shape)`` when ``i % stats_every == 0``
-        (nf_tpu manager.py:540-560).  Under a process ``group`` each rank
-        takes its rows of every batch."""
-        def run_epoch(i, preburn, ws):
+                      stats_batch, group):
+        """``(train, refresh)``: ``train(preburn, ws) -> [loss, var, integ, err,
+        ess]`` is one epoch's step on the global minibatches ``ws``, the
+        batch-statistics one or with a :class:`TrainPlan` the stale one;
+        ``refresh()`` moves the stale trainer's running statistics on latents
+        drawn by ``uniform(shape)`` (nf_tpu manager.py:540-560), ``None`` for
+        the batch trainer.  Under a process ``group`` each rank takes its rows
+        of every batch."""
+        forward = None if plan is None else stale_forward(plan, model)
+
+        def train(preburn, ws):
             ws = [shard_rows(w, group) for w in ws]
-            if plan is None:
-                return epoch_step(model, optimizer, f, ws, preburn, maxf, loss_mode, pathwise,
-                                  group=group)
-            refresh_w = shard_rows(uniform((stats_batch, ws[0].shape[1])), group) \
-                if i % stats_every == 0 else None
-            return stale_epoch_step(model, plan, optimizer, f, ws, preburn, maxf, loss_mode,
-                                    pathwise, refresh_w, group)
-        return run_epoch
+            return epoch_step(model, optimizer, f, ws, preburn, maxf, loss_mode, pathwise,
+                              forward, group)
+
+        if plan is None:
+            return train, None
+
+        def refresh():
+            w = uniform((stats_batch, model.flow.n_flow))
+            refresh_bn_stats(plan, model, shard_rows(w, group), group)
+        return train, refresh
+
+    @staticmethod
+    def _epoch(train, refresh, stats_every, i, preburn, ws):
+        """Epoch ``i`` at the per-epoch cadence: the step, then the refresh
+        when ``i % stats_every == 0``."""
+        stats = train(preburn, ws)
+        if refresh is not None and i % stats_every == 0:
+            refresh()
+        return stats
 
     def _train_variance_forward_seq(self, f, optimizer_object, log=True,
                                     logdir=None, batch_size=10000, epochs=10,
@@ -297,7 +325,7 @@ class BasicManager:
                                     seed=None, mesh=None, pathwise=False,
                                     epochs_per_sync=1, select_best_by="loss",
                                     resume_from=None, progress_callback=None,
-                                    bn_stats="batch", stats_every=4):
+                                    bn_stats="batch", stats_every=4, _graphs=None):
         """Train with the integrand variance as loss; the Jacobian comes from
         the forward pass and the gradient flows through it only, unless
         ``pathwise``, which also differentiates ``f(x)``.
@@ -314,11 +342,12 @@ class BasicManager:
         trains data-parallel (module docstring): the minibatch and the
         statistics batch must divide by the mesh size (else ``ValueError``),
         and the first rank's parameters, buffers and generator state are
-        broadcast to the others at the start.  Returns ``(integral,
-        error)`` when ``integrate`` else ``(0, 0)``.
+        broadcast to the others at the start.  ``epochs_per_sync``: 1, an int
+        ``k > 1`` or ``"auto"`` (module docstring); an int below 1 counts as 1.
+        ``_graphs`` (tests) overrides where the chunk replays CUDA graphs:
+        ``False`` runs it eagerly on the card.  Returns ``(integral, error)``
+        when ``integrate`` else ``(0, 0)``.
         """
-        if epochs_per_sync != 1:
-            _not_ported("epochs_per_sync", epochs_per_sync)
         if bn_stats not in ("batch", "stale"):
             raise ValueError(f"unknown bn_stats {bn_stats!r}")
         if select_best_by not in ("loss", "ess"):
@@ -365,15 +394,28 @@ class BasicManager:
             integ[:n_old] = np.asarray(rs["integ"])[:n_old]
             err[:n_old] = np.asarray(rs["err"])[:n_old]
 
+        auto = epochs_per_sync == "auto"
+        chunked = auto or int(epochs_per_sync) > 1
+        on_card = self.device.type == "cuda" and group is None
+        graphs = chunked and (on_card if _graphs is None else _graphs)
+        if graphs and not on_card:
+            raise ValueError("the chunk replays CUDA graphs on a CUDA device without a mesh only")
         optimizer = optimizer_object(model.parameters())
         if rs is not None:
             optimizer.load_state_dict(rs["opt"])
+        set_capturable(optimizer, chunked and on_card)
         epoch_cfg = {"f": f, "maxf": maxf, "loss_mode": loss_mode, "pathwise": pathwise,
                      "plan": pwquad_train.TrainPlan(self._flow) if bn_stats == "stale" else None,
                      # the refresh's bounded batch (nf_tpu manager.py:464)
-                     "stats_every": stats_every, "stats_batch": min(mini_batch_size, 1 << 16),
-                     "group": group}
-        run_epoch = self._epoch_runner(model, optimizer, self._uniform, **epoch_cfg)
+                     "stats_batch": min(mini_batch_size, 1 << 16), "group": group}
+        train, refresh = self._epoch_runner(model, optimizer, self._uniform, **epoch_cfg)
+        by_ess = select_best_by == "ess"
+        chunk_cfg = None
+        if chunked:
+            chunk_cfg = {"n_minibatches": n_minibatches, "mini_batch_size": mini_batch_size,
+                         "stats_every": stats_every, "preburn_time": preburn_time,
+                         "kill_counter": kill_counter, "by_ess": by_ess, "graphs": graphs}
+            k0 = max(min(check_time if auto else int(epochs_per_sync), epochs), 1)
 
         # ---- host-side epoch loop with the early-stop state machine
         # (reference manager.py:212-327)
@@ -395,9 +437,10 @@ class BasicManager:
             except ImportError:
                 pass
 
-        def process_epoch(i, loss, var_val, integ_e, err_e, ess):
+        def process_epoch(i, loss, var_val, integ_e, err_e, ess, snapshot):
             """Host state machine for one finished epoch (reference
-            manager.py:282-327).  Returns True to stop training."""
+            manager.py:282-327); ``snapshot()`` gives the best model to keep
+            on an improvement.  Returns True to stop training."""
             integ[i - epoch_offset + 1] += integ_e
             err[i - epoch_offset + 1] += err_e
             if save_best or log:
@@ -418,14 +461,14 @@ class BasicManager:
                 run.log_scalar("training.loss", loss, i)
                 run.log_scalar("training.loss_rel", loss / self.int_loss, i)
 
-            improved = ess > self.best_ess if select_best_by == "ess" else loss < self.best_loss
+            improved = ess > self.best_ess if by_ess else loss < self.best_loss
             if (save_best or log) and improved and not sm["preburner"]:
                 self.best_ess = ess
                 self.best_loss = loss
                 self.best_var = var_val
                 self.best_loss_rel = loss / self.int_loss
                 # post-update snapshot (reference manager.py:280,297)
-                self.best_model = copy.deepcopy(model)
+                self.best_model = snapshot()
                 self.best_epoch = i
                 self.best_time = time.time() - t_start
 
@@ -454,11 +497,48 @@ class BasicManager:
             return False
 
         i = epoch_start - 1
-        for i in range(epoch_start, epochs_end):
-            ws = [self._uniform((mini_batch_size, n_flow)) for _ in range(n_minibatches)]
-            stats = run_epoch(i, sm["preburner"], ws)
-            if process_epoch(i, *stats.tolist()):  # the epoch's sync
-                break
+        if not chunked:
+            for i in range(epoch_start, epochs_end):
+                ws = [self._uniform((mini_batch_size, n_flow)) for _ in range(n_minibatches)]
+                stats = self._epoch(train, refresh, stats_every, i, sm["preburner"], ws)
+                if process_epoch(i, *stats.tolist(),  # the epoch's sync
+                                 lambda: copy.deepcopy(model)):
+                    break
+        else:
+            runner = tchunk.EpochChunk(model, optimizer, train, refresh, self._uniform,
+                                       self._gen, **chunk_cfg)
+            next_i, stop = epoch_start, False
+            while next_i < epochs_end and not stop:
+                k = min(k0, epochs_end - next_i)
+                init = (sm["preburner"], sm["counter"], sm["last_loss"],
+                        self.best_ess if by_ess else self.best_loss, self.best_loss,
+                        self.best_model)
+                runner.save()
+                rows = runner.run(next_i, k, init).tolist()   # the chunk's one sync
+                snapshots = []
+                for j, row in enumerate(rows):
+                    i = next_i + j
+                    # the device ran the host's machine: any drift is a bug
+                    # (nf_tpu manager.py:806-828)
+                    if bool(row[5]) != sm["preburner"]:
+                        raise RuntimeError(f"device/host preburn state diverged at epoch {i}")
+                    stop = process_epoch(i, *row[:5], lambda: snapshots.append(i))
+                    if stop:
+                        break
+                    if int(row[6]) != sm["counter"]:
+                        raise RuntimeError(f"device/host kill counter diverged at epoch {i}: "
+                                           f"device {int(row[6])} != host {sm['counter']}")
+                if stop and j < k - 1:
+                    # a stop inside the chunk: run it again from its start
+                    # up to the stop, so the state is the stop epoch's
+                    runner.restore()
+                    again = runner.run(next_i, j + 1, init).tolist()
+                    if not np.array_equal(again, rows[:j + 1], equal_nan=True):
+                        raise RuntimeError(f"the replay of epochs {next_i}-{i} differs from "
+                                           "their first run")
+                if snapshots:   # the last, after the replay: the runner's best
+                    self.best_model = runner.best_model()
+                next_i += k
 
         if pbar is not None:
             pbar.close()
@@ -468,7 +548,8 @@ class BasicManager:
         self._sm_state = dict(sm)
         self._epoch_offset = epoch_offset
         self._last_epoch = i
-        self._bench = (optimizer, epoch_cfg, n_minibatches, mini_batch_size, batch_size)
+        self._bench = (optimizer, epoch_cfg, n_minibatches, mini_batch_size, batch_size,
+                       stats_every, chunk_cfg and dict(chunk_cfg, k0=k0))
 
         # ---- PHASE C: tail integration with the best model in eval mode
         # (reference manager.py:332-346; note the reference's asymmetric
@@ -561,29 +642,32 @@ class BasicManager:
         It runs on deep copies of the model and the optimizer, and draws its
         latents from a generator of its own, so the trained state and the
         manager's stream are untouched; it keeps the run's batch sizes, loss
-        and BatchNorm mode, outside preburn.  One timed rep is ``stats_every`` epochs for
-        the stale trainer, so it holds one statistics refresh, and one epoch
-        otherwise.  On a CUDA device the time is between CUDA events; on the
-        CPU it is the host clock.  Counterpart of nf_tpu's
-        ``benchmark_train_step`` (manager.py:902-965), without its
-        dispatch-latency differencing.
+        and BatchNorm mode, outside preburn.  After a per-epoch run one timed
+        rep is ``stats_every`` epochs for the stale trainer, so it holds one
+        statistics refresh, and one epoch otherwise.  After a chunked run it
+        is one chunk of the run's length, as nf_tpu times its chunk: on the
+        card ``k`` replays of the epoch graph (the refreshes among them) and
+        the chunk's one read; the warm-up captures the graphs.  On a CUDA
+        device the time is between CUDA events; on the CPU it is the host
+        clock.  Counterpart of nf_tpu's ``benchmark_train_step``
+        (manager.py:902-965), without its dispatch-latency differencing.
         """
-        optimizer, cfg, n_mb, mb, batch_size = self._bench
-        # one deepcopy of both keeps the optimizer bound to the copied model
-        model, optimizer = copy.deepcopy((self._model, optimizer))
-        gen = torch.Generator(device=self.device).manual_seed(1234)
+        _, _, n_mb, mb, batch_size, stats_every, chunk_cfg = self._bench
+        if chunk_cfg is None:
+            _, _, train, refresh, uniform, _ = self._bench_copy()
+            k = 1 if refresh is None else stats_every
 
-        def uniform(shape):
-            return torch.rand(shape, generator=gen, dtype=self.dtype, device=self.device)
+            def rep():
+                for i in range(k):
+                    ws = [uniform((mb, self.n_flow)) for _ in range(n_mb)]
+                    self._epoch(train, refresh, stats_every, i, False, ws).tolist()
+        else:
+            runner, k, init = self._bench_chunk()
 
-        run_epoch = self._epoch_runner(model, optimizer, uniform, **cfg)
-        k = 1 if cfg["plan"] is None else cfg["stats_every"]
+            def rep():
+                runner.run(0, k, init).tolist()
+
         cuda = self.device.type == "cuda"
-
-        def rep():
-            for i in range(k):
-                run_epoch(i, False, [uniform((mb, self.n_flow)) for _ in range(n_mb)]).tolist()
-
         rep()
         times = []
         for _ in range(reps):
@@ -601,6 +685,34 @@ class BasicManager:
                 times.append((time.perf_counter() - t0) / k)
         sec = float(np.median(times))
         return sec, batch_size / sec
+
+    def _bench_copy(self, seed=1234):
+        """The last run's epoch on deep copies of its model and optimizer,
+        drawing from a generator of its own seeded with ``seed``: ``(model,
+        optimizer, train, refresh, uniform, generator)``
+        (:meth:`_epoch_runner`)."""
+        optimizer, cfg = self._bench[:2]
+        # one deepcopy of both keeps the optimizer bound to the copied model
+        model, optimizer = copy.deepcopy((self._model, optimizer))
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+
+        def uniform(shape):
+            return torch.rand(shape, generator=gen, dtype=self.dtype, device=self.device)
+
+        return (model, optimizer, *self._epoch_runner(model, optimizer, uniform, **cfg), uniform,
+                gen)
+
+    def _bench_chunk(self, seed=1234):
+        """A chunked run's chunk on :meth:`_bench_copy`'s copies: ``(runner,
+        k, init)``, the :class:`~nf_tpu_torch.training.chunk.EpochChunk` (on
+        graphs where the run replayed them), the run's chunk length and a
+        state machine outside preburn."""
+        model, optimizer, train, refresh, uniform, gen = self._bench_copy(seed)
+        cfg = dict(self._bench[6])
+        k = cfg.pop("k0")
+        runner = tchunk.EpochChunk(model, optimizer, train, refresh, uniform, gen, **cfg)
+        best = self.best_ess if cfg["by_ess"] else self.best_loss
+        return runner, k, (False, 0, 1000.0, best, self.best_loss, model)
 
     # -- post-training integrator (reference manager.py:380-405) ------------
 

@@ -33,23 +33,24 @@ torch.set_num_threads(1)
 R, MB, N_MB, EPOCHS = 4, 128, 2, 8
 
 
-def _nf_tpu_stack(n_runs=R):
+def _nf_tpu_stack(n_runs=R, n_flow=2):
     flow, ps, ss = jensemble.stack_ensemble(
-        lambda k: jfactory.build_pwquad_flow(k, 2, 2, 4, (3, 3), jnp.float64),
+        lambda k: jfactory.build_pwquad_flow(k, n_flow, 2, 4, (3, 3), jnp.float64),
         jax.random.PRNGKey(0), n_runs)
     return flow, jax.tree.map(np.asarray, ps), jax.tree.map(np.asarray, ss)
 
 
-def _nf_tpu_latents(key, n_runs, epochs, groups):
+def _nf_tpu_latents(key, n_runs, epochs, groups, n_flow=2):
     """nf_tpu's per-run draws for ``key``, in the order the port draws them
     for runs grouped as ``groups`` (slices): per group, phase A
     ``[R, n_flow, 2 mb, n_flow]``, then each epoch ``[R, n_mb, mb, n_flow]``."""
     phase_a, epoch_ws = [], []
     for rk in jax.random.split(key, n_runs):
         k_a, k_t = jax.random.split(rk)
-        phase_a.append(np.stack([np.asarray(jax.random.uniform(k, (2 * MB, 2), jnp.float64))
-                                 for k in jax.random.split(k_a, 2)]))
-        epoch_ws.append([np.stack([np.asarray(jax.random.uniform(k, (MB, 2), jnp.float64))
+        phase_a.append(np.stack([np.asarray(jax.random.uniform(k, (2 * MB, n_flow),
+                                                               jnp.float64))
+                                 for k in jax.random.split(k_a, n_flow)]))
+        epoch_ws.append([np.stack([np.asarray(jax.random.uniform(k, (MB, n_flow), jnp.float64))
                                    for k in jax.random.split(ek, N_MB)])
                          for ek in jax.random.split(k_t, epochs)])
     out = collections.deque()
@@ -121,6 +122,22 @@ def test_matches_nf_tpu(monkeypatch, loss_mode, select_best_by, lr, kill_counter
             x_j, jac_j = interop.ensemble_member(flow, ref, i).frozen_forward(w, True)
         np.testing.assert_allclose(x_t.numpy(), x_j.numpy(), rtol=1e-8, atol=1e-12)
         np.testing.assert_allclose(jac_t.numpy(), jac_j.numpy(), rtol=1e-8)
+
+
+def test_products_of_several_factors_match_nf_tpu(monkeypatch):
+    """A 4-D flow, whose coupling transforms take products of two factors
+    (``coupling.prod`` under ``vmap`` of ``grad``): the histories and the
+    integrals as nf_tpu's."""
+    flow, ps, ss = _nf_tpu_stack(n_flow=4)
+    key = jax.random.PRNGKey(2)
+    kw = dict(batch_size=MB * N_MB, mini_batch_size=MB, epochs=EPOCHS, preburn_time=3,
+              kill_counter=7)
+    want = jensemble.train_ensemble(flow, ps, ss, camel_j, joptim.adamax(3e-3, 1e-4), key, **kw)
+    got = _port_run(monkeypatch, flow, ps, ss,
+                    _nf_tpu_latents(key, R, EPOCHS, [slice(0, R)], n_flow=4), 3e-3, **kw)
+    for name in ("history", "best_loss", "integ_tot", "err_tot", "int_loss"):
+        np.testing.assert_allclose(got[name], np.asarray(want[name]), rtol=1e-9, err_msg=name)
+    np.testing.assert_array_equal(got["best_epoch"], want["best_epoch"])
 
 
 def _grouped(monkeypatch, runs_per_call, groups, n_runs=5):

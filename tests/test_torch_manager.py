@@ -246,15 +246,6 @@ def test_early_stop_runs_the_tail_integration():
     assert np.all(NF._err_hist > 0) and np.isfinite(sig) and err > 0
 
 
-@pytest.mark.parametrize("kwargs", [
-    {"epochs_per_sync": 2}, {"epochs_per_sync": 4}, {"epochs_per_sync": "auto"},
-])
-def test_unported_arguments_raise(manager, kwargs):
-    with pytest.raises(NotImplementedError, match=next(iter(kwargs))):
-        manager._train_variance_forward_seq(camel_t, toptim.adamax(1e-3), epochs=1,
-                                            batch_size=100, mini_batch_size=100, **kwargs)
-
-
 @pytest.mark.parametrize("arg", ["resume_from", "logdir", "run"])
 def test_logging_and_resume_arguments_work(tmp_path, arg):
     """The arguments the trainer once refused: each is accepted and does

@@ -317,10 +317,12 @@ def test_stale_epoch_matches_nf_tpu(camel_stats_kernel, loss_mode, preburn, path
                                              loss_mode, pathwise, camel_stats_kernel)
 
     opt = _GradTap(toptim.adamax(2e-3, 1e-4)(model.parameters()), model.parameters())
-    stats = tmanager.stale_epoch_step(
-        model, ttrain.TrainPlan(flow), opt, camel_t, [torch.tensor(w) for w in ws], preburn,
+    plan = ttrain.TrainPlan(flow)
+    stats = tmanager.epoch_step(
+        model, opt, camel_t, [torch.tensor(w) for w in ws], preburn,
         torch.tensor(maxf, dtype=torch.float64), loss_mode, pathwise,
-        refresh_w=torch.tensor(refresh_w))
+        tmanager.stale_forward(plan, model))
+    tmanager.refresh_bn_stats(plan, model, torch.tensor(refresh_w))
     np.testing.assert_allclose(float(stats[0]), loss_j, rtol=1e-5)
     grads = interop.from_numpy(flow, params, state)
     with torch.no_grad():
