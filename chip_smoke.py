@@ -53,14 +53,20 @@ errors, float64 against the CPU) and the profiling helpers.
 Phase 16 drives data parallelism (``nf_tpu_torch.parallel``): on a world of
 one over NCCL, ``sample``, ``integrate``, both trainers, unweighting and the
 mixture under ``mesh=`` against their single-device runs (bit for bit where
-the arithmetic is the same), the sampler's per-rank counter offsets against
-one launch, two ranks on the card over gloo against one process, and the
-paired times of the mesh paths and the collectives a minibatch makes.
-Phase 17 drives the chunked epoch cadence (``epochs_per_sync`` > 1 and
-``"auto"``): each epoch and each statistics refresh a replayed CUDA graph,
-held against the same chunk run eagerly (bit for bit, launch counts too)
-and against the per-epoch run, stops inside a chunk, bench.py's stale
-stages at ``epochs_per_sync=6``, paired epoch times and device profiles.
+the arithmetic is the same; the trainers at the default and at
+``epochs_per_sync=1``), the sampler's per-rank counter offsets against one
+launch, two ranks on the card over gloo against one process, and the paired
+times of the mesh paths and the collectives a minibatch makes.
+Every trainer call that passes no ``epochs_per_sync`` runs the default,
+``"auto"``: chunks of epochs, each epoch and each statistics refresh a
+replayed CUDA graph, the optimizer's step the update kernel
+(``ops/csrc/optim_step.cu``).  Phase 17 holds that cadence against the
+per-epoch run (``epochs_per_sync=1``, torch's own optimizer step) bit for
+bit: the camel trainers (Adamax and Adam), bench.py's stale stages at
+``epochs_per_sync=6`` (and the same chunk run eagerly), stops inside a
+chunk; then paired epoch times and device profiles, and the update kernel
+against torch's Adamax / Adam step and its plain version at the parameter
+shapes of four plans, timed beside torch's steps.
 Prints one ``{"kernels": [...]}`` line;
 the last line of standard output is ``{"ok": true, "device": {...}}``; any
 failed check exits non-zero before it is printed.  Exits non-zero at once
@@ -191,7 +197,9 @@ def device_profile(tag, what, fn, card):
         # a trace of a call of a few small kernels (one ToyPDF call) has come
         # back with no device record at all, from key_averages() and from
         # the raw events alike, where other runs' traces of the same call
-        # held its kernels
+        # held its kernels.  Where a CUDA graph was captured before, CUPTI
+        # torn down and set up again between traces was the cause: the
+        # chunk's capture now keeps it up (training/chunk.py _keep_cupti)
         print(f"{tag} {what}: the tracer returned no device record (try {attempt + 1}); "
               "profiling the call again")
     total = sum(us for us, _ in rows.values())
@@ -1065,22 +1073,27 @@ def phase15(dev, card, kind, hold_train):
     camel_model = ((2, 4, [3] * 3), {})
     flag_model = ((8, 8, [16, 16]), {"final_rank": 4})
     resumed, log_run = {}, Run()
-    for tag, n_flow, model, f, bn_stats, epochs, batch, mini in (
+    # each at the default cadence, and the camel stale run at
+    # epochs_per_sync=1 too (the per-epoch path's save and resume_from)
+    for tag, n_flow, model, f, bn_stats, epochs, batch, mini, cadence in (
             ("camel stale", 2, camel_model, camel, "stale", P15_CAMEL_EPOCHS, P15_CAMEL_BATCH,
-             P15_CAMEL_BATCH),
+             P15_CAMEL_BATCH, {}),
+            ("camel stale per-epoch", 2, camel_model, camel, "stale", P15_CAMEL_EPOCHS,
+             P15_CAMEL_BATCH, P15_CAMEL_BATCH, {"epochs_per_sync": 1}),
             ("camel batch", 2, camel_model, camel, "batch", P15_CAMEL_EPOCHS, P15_CAMEL_BATCH,
-             P15_CAMEL_BATCH),
+             P15_CAMEL_BATCH, {}),
             ("flagship stale", 10, flag_model, gauss10, "stale", P15_FLAG_EPOCHS,
-             P15_FLAG_BATCH, P15_FLAG_MINI)):
+             P15_FLAG_BATCH, P15_FLAG_MINI, {})):
         logged = {"log": True, "logdir": os.path.join(tmp, "logdir"), "run": log_run} \
             if tag == "camel stale" else {}
         before = counts()
-        whole, whole_s = train(n_flow, model, f, bn_stats, 2 * epochs, batch, mini, **logged)
-        first, first_s = train(n_flow, model, f, bn_stats, epochs, batch, mini)
+        whole, whole_s = train(n_flow, model, f, bn_stats, 2 * epochs, batch, mini, **logged,
+                               **cadence)
+        first, first_s = train(n_flow, model, f, bn_stats, epochs, batch, mini, **cadence)
         state = os.path.join(tmp, tag.replace(" ", "_") + ".pt")
         first.save_training_state(state)
         NF, resumed_s = train(n_flow, model, f, bn_stats, epochs, batch, mini, epoch_start=epochs,
-                              resume_from=state)
+                              resume_from=state, **cadence)
         launched = delta(before)
         resumed[tag] = (whole, NF)
         hist_err = float(np.max(np.abs(np.asarray(NF.history) / np.asarray(whole.history) - 1)))
@@ -1106,7 +1119,7 @@ def phase15(dev, card, kind, hold_train):
             check(launched == (0, 4 * epochs * n_mb + refreshes, 4 * epochs * n_mb),
                   f"{tag} launched sampler/fwd/bwd {launched}")
     print("phase15 check 1: the resumes equal the uninterrupted runs bit for bit (camel stale "
-          "and batch, flagship stale)")
+          "at the default and at epochs_per_sync=1, camel batch, flagship stale)")
     for tag in ("camel stale", "camel batch"):
         NF = resumed[tag][1]
         before = counts()
@@ -1487,47 +1500,65 @@ def phase16(dev, card, NF):
     print("phase16 check 1: sample(2^24, mesh=) bit-identical to sample(2^24); integrate(8, "
           "2^21, mesh=) within roundoff (and qmc equal) on the same seeds, in the gate")
 
-    # ---- check 3: both trainers under mesh= against mesh=None, bit for bit
+    # ---- check 3: both trainers under mesh= against mesh=None, bit for bit,
+    # at the default cadence (under mesh= the chunk runs eagerly; without,
+    # on graphs) and at epochs_per_sync=1 (the per-epoch loop, one
+    # all-reduce and one host read an epoch); the two cadences equal too
     batch, epochs = P16_CAMEL
-    runs, bench = {}, {}
-    counted = collections.Counter()
+    runs = {}
     for bn_stats in ("batch", "stale"):
-        before = (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES)
-        runs[bn_stats] = [train_camel(dev, bn_stats, epochs, batch, m) for m in (mesh, None)]
-        launched = (pt.FWD_LAUNCHES - before[0], pt.BWD_LAUNCHES - before[1])
-        a, b = runs[bn_stats]
-        check(a.history == b.history and np.array_equal(a._integ_hist, b._integ_hist)
-              and (a.integ_tot, a.err_tot) == (b.integ_tot, b.err_tot)
-              and equal_models(a.best_model, b.best_model) and equal_models(a._model, b._model),
-              f"camel {bn_stats} trainer under mesh= bit-identical to mesh=None")
-        want = (0, 0) if bn_stats == "batch" else \
-            (2 * (epochs + (epochs - 1) // 4 + 1), 2 * epochs)
-        check(launched == want, f"camel {bn_stats} launched fwd/bwd {launched}, not {want}")
-        print(f"phase16 camel {bn_stats} trainer, batch {batch}, {epochs} epochs: mesh= "
-              f"bit-identical to mesh=None (integral {a.integ_tot:.7f} +- {a.err_tot:.2e}); "
-              f"fwd/bwd launches {launched}")
+        for cadence in ("auto", 1):
+            before = (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES)
+            runs[bn_stats, cadence] = [train_camel(dev, bn_stats, epochs, batch, m,
+                                                   epochs_per_sync=cadence) for m in (mesh, None)]
+            launched = (pt.FWD_LAUNCHES - before[0], pt.BWD_LAUNCHES - before[1])
+            a, b = runs[bn_stats, cadence]
+            check(a.history == b.history and np.array_equal(a._integ_hist, b._integ_hist)
+                  and (a.integ_tot, a.err_tot) == (b.integ_tot, b.err_tot)
+                  and equal_models(a.best_model, b.best_model)
+                  and equal_models(a._model, b._model),
+                  f"camel {bn_stats} trainer at epochs_per_sync={cadence} under mesh= "
+                  "bit-identical to mesh=None")
+            want = (0, 0) if bn_stats == "batch" else \
+                (2 * (epochs + (epochs - 1) // 4 + 1), 2 * epochs)
+            check(launched == want, f"camel {bn_stats} launched fwd/bwd {launched}, not {want}")
+            print(f"phase16 camel {bn_stats} trainer, batch {batch}, {epochs} epochs at "
+                  f"epochs_per_sync={cadence}: mesh= bit-identical to mesh=None (integral "
+                  f"{a.integ_tot:.7f} +- {a.err_tot:.2e}); fwd/bwd launches {launched}")
+        a, b = runs[bn_stats, "auto"][0], runs[bn_stats, 1][0]
+        check(a.history == b.history and equal_models(a._model, b._model),
+              f"camel {bn_stats} under mesh=: the default cadence equals epochs_per_sync=1")
     fb, fmb, fep = P16_FLAG
-    before = (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES)
-    flag = []
-    for m in (mesh, None):
-        F = PWQuadManager(n_flow=10, seed=0, device=dev)
-        F.create_model(8, 8, [16, 16], final_rank=4)
-        F._train_variance_forward_seq(gauss10, optimizers.adamax(2e-3, 1e-4), log=False,
-                                      batch_size=fb, mini_batch_size=fmb, epochs=fep,
-                                      preburn_time=0, kill_counter=1000, integrate=False,
-                                      pretty_progressbar=False, bn_stats="stale", stats_every=4,
-                                      mesh=m)
-        flag.append(F)
-    launched = (pt.FWD_LAUNCHES - before[0], pt.BWD_LAUNCHES - before[1])
     n_mb = fb // fmb
     want = (2 * (fep * n_mb + (fep - 1) // 4 + 1), 2 * fep * n_mb)
-    check(flag[0].history == flag[1].history and equal_models(flag[0]._model, flag[1]._model),
-          "flagship stale trainer under mesh= bit-identical to mesh=None")
-    check(launched == want, f"flagship stale launched fwd/bwd {launched}, not {want}")
-    print(f"phase16 flagship stale trainer, 2^20 in 4 x 2^18, {fep} epochs: mesh= bit-identical "
-          f"to mesh=None; fwd/bwd launches {launched}")
+    flag = {}
+    for cadence in ("auto", 1):
+        before = (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES)
+        flag[cadence] = []
+        for m in (mesh, None):
+            F = PWQuadManager(n_flow=10, seed=0, device=dev)
+            F.create_model(8, 8, [16, 16], final_rank=4)
+            F._train_variance_forward_seq(gauss10, optimizers.adamax(2e-3, 1e-4), log=False,
+                                          batch_size=fb, mini_batch_size=fmb, epochs=fep,
+                                          preburn_time=0, kill_counter=1000, integrate=False,
+                                          pretty_progressbar=False, bn_stats="stale",
+                                          stats_every=4, mesh=m, epochs_per_sync=cadence)
+            flag[cadence].append(F)
+        launched = (pt.FWD_LAUNCHES - before[0], pt.BWD_LAUNCHES - before[1])
+        a, b = flag[cadence]
+        check(a.history == b.history and equal_models(a._model, b._model),
+              f"flagship stale trainer at epochs_per_sync={cadence} under mesh= bit-identical "
+              "to mesh=None")
+        check(launched == want, f"flagship stale launched fwd/bwd {launched}, not {want}")
+        print(f"phase16 flagship stale trainer, 2^20 in 4 x 2^18, {fep} epochs at "
+              f"epochs_per_sync={cadence}: mesh= bit-identical to mesh=None; fwd/bwd launches "
+              f"{launched}")
+    check(flag["auto"][0].history == flag[1][0].history
+          and equal_models(flag["auto"][0]._model, flag[1][0]._model),
+          "flagship stale under mesh=: the default cadence equals epochs_per_sync=1")
     print("phase16 check 3: both trainers under mesh= equal their mesh=None runs bit for bit "
-          "(camel batch and stale, flagship stale), launch counts exact")
+          "(camel batch and stale, flagship stale), at the default cadence and at "
+          "epochs_per_sync=1, which equal each other; launch counts exact")
 
     # ---- check 4: unweighting and the mixture under mesh=
     n_events, unw_batch, q = P16_UNW
@@ -1629,104 +1660,220 @@ def phase16(dev, card, NF):
             return originals[name](*args, **kwargs)
         return call
 
-    for tag, (a, b) in (("camel batch", runs["batch"]), ("camel stale", runs["stale"]),
-                        ("flagship stale", flag)):
-        ms = [b.benchmark_train_step()[0] * 1e3, a.benchmark_train_step()[0] * 1e3,
-              a.benchmark_train_step()[0] * 1e3, b.benchmark_train_step()[0] * 1e3]
-        reps, k = 1, 1 if tag == "camel batch" else 4
-        n_mb = a._bench[2]
-        calls.clear()
-        for name in originals:
-            setattr(dist, name, counting(name))
-        try:
-            a.benchmark_train_step(reps=reps)
-        finally:
-            for name, fn in originals.items():
-                setattr(dist, name, fn)
-        per_mb = sum(calls.values()) / ((reps + 1) * k * n_mb)
-        print(f"phase16 check 6 {tag} epoch: mesh=None {ms[0]:.3f} / {ms[3]:.3f} ms, mesh= "
-              f"{ms[1]:.3f} / {ms[2]:.3f} ms (CUDA events); {per_mb:.2f} collectives a "
-              f"minibatch of {a._bench[3]} ({dict(calls)} over {(reps + 1) * k} epochs) {card}")
+    # at each cadence: a rep of the default is a chunk of the run's length;
+    # of the per-epoch run one epoch, or stats_every = 4 for the stale
+    # trainer (one refresh among them)
+    for tag, pairs in (("camel batch", (runs["batch", "auto"], runs["batch", 1])),
+                       ("camel stale", (runs["stale", "auto"], runs["stale", 1])),
+                       ("flagship stale", (flag["auto"], flag[1]))):
+        for cadence, (a, b) in zip(("auto", 1), pairs):
+            ms = [b.benchmark_train_step()[0] * 1e3, a.benchmark_train_step()[0] * 1e3,
+                  a.benchmark_train_step()[0] * 1e3, b.benchmark_train_step()[0] * 1e3]
+            reps = 1
+            k = a._bench[6]["k0"] if cadence == "auto" else 1 if tag == "camel batch" else 4
+            n_mb = a._bench[2]
+            calls.clear()
+            for name in originals:
+                setattr(dist, name, counting(name))
+            try:
+                a.benchmark_train_step(reps=reps)
+            finally:
+                for name, fn in originals.items():
+                    setattr(dist, name, fn)
+            per_mb = sum(calls.values()) / ((reps + 1) * k * n_mb)
+            print(f"phase16 check 6 {tag} epoch at epochs_per_sync={cadence}: mesh=None "
+                  f"{ms[0]:.3f} / {ms[3]:.3f} ms, mesh= {ms[1]:.3f} / {ms[2]:.3f} ms (CUDA "
+                  f"events); {per_mb:.2f} collectives a minibatch of {a._bench[3]} "
+                  f"({dict(calls)} over {(reps + 1) * k} epochs) {card}")
     dist.destroy_process_group()
     print(f"phase16: {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
-# ---- phase 17: the chunked epoch cadence (epochs_per_sync > 1 or "auto"):
-# each epoch and each statistics refresh a replayed CUDA graph, the state
-# machine on the device, one read a chunk
+# ---- phase 17: the chunked epoch cadence (epochs_per_sync > 1 or "auto",
+# the default): each epoch and each statistics refresh a replayed CUDA graph,
+# the state machine on the device, one read a chunk, the optimizer's step the
+# update kernel; every run against the per-epoch run, bit for bit
 P17_CAMEL = (10000, 2000, 150)          # the camel main path: batch, minibatch, epochs
 P17_STAGES = (6, 6)                     # bench.py:335,388: epochs, epochs_per_sync
 P17_KILL = (2000, 1000, 60)             # the forced stop: batch, minibatch, epochs
-# The graph chunk against the per-epoch run: the relative difference of their
-# loss histories over the first P17_HIST[0] epochs.  The capturable optimizer
-# computes Adamax's bias correction on the device in float32 where the
-# per-epoch one takes it from the host in float64
-# (training/optimizers.set_capturable): a rounding of the step size, ~1e-7
-# relative a step, which moved the losses by 2-4e-7 over 60 epochs on the card
-# (PERF.md §6).  Later the two trajectories part as any two runs whose
-# parameters differ by rounding do (1.2e-2 by epoch 150 for the batch
-# trainer): there the best and the stop epochs are held, and the difference
-# printed.
-P17_HIST = (60, 1e-5)
 
 
 def same_run(a, b):
-    """What two managers' runs left, bit for bit: ``(equal, what differs)``."""
+    """What two managers' runs left, bit for bit: ``(equal, what differs)``.
+    The optimizer's state includes ``step``, which must lie on the CPU in
+    both, as the per-epoch run keeps it."""
+    import numpy as np
     import torch
     diffs = []
     if a.history != b.history:
         diffs.append("history")
     if (a.best_epoch, a._last_epoch) != (b.best_epoch, b._last_epoch):
         diffs.append("best/last epoch")
+    if not (np.array_equal(a._integ_hist, b._integ_hist)
+            and np.array_equal(a._err_hist, b._err_hist)):
+        diffs.append("integral history")
     for name, x, y in (("model", a._model, b._model), ("best model", a.best_model, b.best_model)):
         if state_digest(x) != state_digest(y):
             diffs.append(name)
-    sa, sb = a._optimizer.state_dict()["state"], b._optimizer.state_dict()["state"]
-    if sa.keys() != sb.keys() or any(
-            not torch.equal(sa[i][n].cpu(), sb[i][n].cpu()) for i in sa for n in sa[i]):
+    da, db = a._optimizer.state_dict(), b._optimizer.state_dict()
+    sa, sb = da["state"], db["state"]
+    if da["param_groups"] != db["param_groups"] or sa.keys() != sb.keys() or any(
+            list(sa[i]) != list(sb[i]) or sa[i]["step"].device.type != "cpu"
+            or sb[i]["step"].device.type != "cpu"
+            or not all(torch.equal(sa[i][n], sb[i][n]) for n in sa[i]) for i in sa):
         diffs.append("optimizer state")
     if not torch.equal(a._gen.get_state(), b._gen.get_state()):
         diffs.append("generator")
     return not diffs, diffs
 
 
-def phase17(dev, card, gen, hold_train):
-    """The chunked cadence on the card, checks 1-5 (``phase17 check N``).
-    Returns the training kernels' launches (forward, backward) on its main
-    paths: the graph chunks of check 1 and bench.py's stale stages of check 2,
-    each counted from 0 just before it; and the kernels' max abs errors
-    against their plain versions (``hold_train``) at the shapes those paths
-    launch."""
-    import numpy as np
+# the update kernel's check: steps at each plan's parameter shapes, the
+# models that give them (create_model's arguments), and the bytes a step
+# moves per float32 element (read p, g and both moments; write p and both)
+P17_UPDATE_STEPS = 200
+P17_UPDATE_PLANS = (("camel2d", 2, (2, 4, [3] * 3), {}),
+                    ("flagship10d_rank4", 10, (8, 8, [16, 16]), {"final_rank": 4}),
+                    ("2to4 n_flow 10", 10, (4, 32, [32] * 2), {"identity_init": True}),
+                    ("zz n_flow 11", 11, (4, 16, [32] * 2),
+                     {"identity_init": True, "final_rank": 4}))
+UPDATE_BYTES = 28
+
+
+def update_check(dev, card):
+    """The update kernel (``ops/optim_step``) against torch's per-epoch step
+    (foreach, not capturable) and against its plain version, bit for bit
+    over ``P17_UPDATE_STEPS`` steps, Adamax and Adam, with and without
+    weight decay, on random tensors at the parameter shapes of each plan;
+    then its time per call beside torch's steps.  Returns the kernels
+    line's numbers at the camel plan (the main path's)."""
     import torch
 
     from nf_tpu_torch import PWQuadManager
+    from nf_tpu_torch.ops import optim_step
+
+    hyper = dict(beta1=0.9, beta2=0.999, eps=1e-8)
+    out = {}
+    for name, n_flow, args, kwargs in P17_UPDATE_PLANS:
+        NF = PWQuadManager(n_flow=n_flow, seed=0, device=dev)
+        NF.create_model(*args, **kwargs)
+        shapes = [p.shape for p in NF._model.parameters()]
+        numel = sum(p.numel() for p in NF._model.parameters())
+        worst = 0.0
+        for adam in (False, True):
+            for wd in (0.0, 1e-4):
+                differ, err, taken = optim_step.compare_with_torch(
+                    shapes, adam=adam, weight_decay=wd, steps=P17_UPDATE_STEPS, device=dev)
+                worst = max(worst, err)
+                print(f"phase17 check 6 update kernel {name} ({len(shapes)} tensors, {numel} "
+                      f"parameters) {'Adam' if adam else 'Adamax'} weight decay {wd:g}: "
+                      f"{P17_UPDATE_STEPS} steps, elements that differ from torch's per-epoch "
+                      f"step or the plain version {differ}")
+                check(differ == 0 and taken == P17_UPDATE_STEPS,
+                      f"update kernel {name} adam={adam} wd={wd}: bit for bit against torch's "
+                      "step and the plain version")
+        # times per call, float32, Adamax with weight decay (the trainer's),
+        # and Adam beside torch's fused capturable Adam
+        times = {}
+        for adam in (False, True):
+            params = [torch.randn(sh, device=dev) for sh in shapes]
+            grads = [torch.randn(sh, device=dev) * 1e-3 for sh in shapes]
+            m, u = [torch.zeros_like(p) for p in params], [torch.zeros_like(p) for p in params]
+            step = torch.zeros(1, dtype=torch.int64, device=dev)
+            tables = optim_step.step_tables(2e-3, (0.9, 0.999), 200, adam, dev)
+            tag = "adam" if adam else "adamax"
+            times[tag, "kernel"] = time_ms(lambda: optim_step.update(
+                params, grads, m, u, step, tables, adam=adam, weight_decay=1e-4, **hyper))
+            step.zero_()
+            ref = optim_step.adam_update_ref if adam else optim_step.adamax_update_ref
+            ref_tables = tables if adam else tables[:1]
+            times[tag, "plain"] = time_ms(lambda: ref(params, grads, m, u, step, *ref_tables,
+                                                      weight_decay=1e-4, **hyper))
+            make = torch.optim.Adam if adam else torch.optim.Adamax
+            variants = [("torch foreach", {}), ("torch foreach capturable",
+                                                {"capturable": True})]
+            if adam:
+                variants.append(("torch fused capturable", {"fused": True, "capturable": True}))
+            for label, flags in variants:
+                ps_ = [p.clone() for p in params]
+                for p, g in zip(ps_, grads):
+                    p.grad = g
+                opt = make(ps_, lr=2e-3, weight_decay=1e-4, **flags)
+                with warnings.catch_warnings():
+                    # the capturable step, run eagerly here, warns so
+                    warnings.simplefilter("ignore")
+                    times[tag, label] = time_ms(opt.step)
+            # inside a CUDA graph, as the chunk runs them: one step's replay,
+            # the kernel against torch's capturable step
+            for label, step_fn in (("kernel in a graph", lambda: optim_step.update(
+                    params, grads, m, u, step, tables, adam=adam, weight_decay=1e-4,
+                    **hyper)), ("torch capturable in a graph", None)):
+                if step_fn is None:
+                    ps_ = [p.clone() for p in params]
+                    for p, g in zip(ps_, grads):
+                        p.grad = g
+                    opt = make(ps_, lr=2e-3, weight_decay=1e-4, capturable=True)
+                    with warnings.catch_warnings():
+                        warnings.simplefilter("ignore")
+                        opt.step()        # the state, before the capture
+                    step_fn = opt.step
+                step.zero_()
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.graph(graph):
+                    step_fn()
+                times[tag, label] = time_ms(graph.replay)
+                variants.append((label, None))
+            print(f"phase17 check 6 update {name} {tag} per call ({numel} parameters, "
+                  f"{len(shapes)} tensors): kernel {times[tag, 'kernel']:.4f} ms, plain "
+                  f"{times[tag, 'plain']:.4f} ms, " + ", ".join(
+                      f"{label} {times[tag, label]:.4f} ms" for label, _ in variants)
+                  + f"; bound {UPDATE_BYTES * numel / PEAK_BYTES_PER_S * 1e3:.6f} ms by bytes "
+                  f"(CUDA events) {card}")
+        out[name] = {"max_abs_err": worst, "ms": times["adamax", "kernel"],
+                     "plain_ms": times["adamax", "plain"],
+                     "bound_ms": UPDATE_BYTES * numel / PEAK_BYTES_PER_S * 1e3,
+                     "library_ms": times["adamax", "torch foreach capturable"]}
+    return out["camel2d"]
+
+
+def phase17(dev, card, gen, hold_train):
+    """The chunked cadence on the card, checks 1-6 (``phase17 check N``).
+    Returns the kernels' launches on its main paths (training forward,
+    backward, update): the graph chunks of checks 1 and 2, each counted from
+    0 just before it; the training kernels' max abs errors against their
+    plain versions (``hold_train``) at the shapes those paths launch; and
+    the update kernel's numbers (:func:`update_check`)."""
+    import torch
+
+    from nf_tpu_torch import PWQuadManager
+    from nf_tpu_torch.ops import optim_step
     from nf_tpu_torch.ops import pwquad_train as pt
     from nf_tpu_torch.training import optimizers
 
     exact = camel_exact()
     t_phase = time.perf_counter()
-    launches, errors = [0, 0], [0.0, 0.0]
+    launches, errors = [0, 0, 0], [0.0, 0.0]
 
     def flat_f(x):
         return torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
 
-    def trained(n_flow, seed, args, kwargs, f, graphs=None, lr=2e-3, **kw):
+    def trained(n_flow, seed, args, kwargs, f, graphs=None, lr=2e-3, opt=optimizers.adamax,
+                **kw):
         NF = PWQuadManager(n_flow=n_flow, seed=seed, device=dev)
         NF.create_model(*args, **kwargs)
         run_kw = dict(log=False, integrate=False, pretty_progressbar=False, stats_every=4)
         run_kw.update(kw)
-        pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = 0
+        pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = optim_step.LAUNCHES = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        NF._train_variance_forward_seq(f, optimizers.adamax(lr, 1e-4), _graphs=graphs, **run_kw)
+        NF._train_variance_forward_seq(f, opt(lr, 1e-4), _graphs=graphs, **run_kw)
         torch.cuda.synchronize()
-        return NF, time.perf_counter() - t0, (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES)
+        return (NF, time.perf_counter() - t0,
+                (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES, optim_step.LAUNCHES))
 
     def count(n):
-        launches[0] += n[0]
-        launches[1] += n[1]
+        for i in range(3):
+            launches[i] += n[i]
 
     def hold(what, NF, sizes):
         """The training kernels against their plain versions on ``NF``'s
@@ -1742,56 +1889,51 @@ def phase17(dev, card, gen, hold_train):
     batch, mini, epochs = P17_CAMEL
     main_kw = dict(batch_size=batch, mini_batch_size=mini, epochs=epochs, preburn_time=20)
 
-    # ---- check 1: the camel main path at "auto", each trainer: the graph
-    # chunk against the eager chunk (the same capturable optimizer) bit for
-    # bit, against the per-epoch run within P17_HIST with the same best and
-    # stop epochs, and its integral against the analytic value
+    # ---- check 1: the camel main path at the default ("auto"), each
+    # trainer, and the batch trainer with Adam: the graph chunk against the
+    # per-epoch run (torch's own step) bit for bit, the update kernel
+    # launched once an epoch, and the integral against the analytic value
     runs = {}
-    for bn in ("batch", "stale"):
-        g, g_s, g_n = trained(2, 0, *camel_model, camel, epochs_per_sync="auto", bn_stats=bn,
-                              **main_kw)
+    for bn, opt in (("batch", optimizers.adamax), ("stale", optimizers.adamax),
+                    ("batch", optimizers.adam)):
+        name = f"camel {bn}" + (" Adam" if opt is optimizers.adam else "")
+        g, g_s, g_n = trained(2, 0, *camel_model, camel, bn_stats=bn, opt=opt, **main_kw)
         count(g_n)
-        e, e_s, e_n = trained(2, 0, *camel_model, camel, graphs=False, epochs_per_sync="auto",
-                              bn_stats=bn, **main_kw)
         p, p_s, p_n = trained(2, 0, *camel_model, camel, epochs_per_sync=1, bn_stats=bn,
-                              **main_kw)
-        runs[bn] = (g, p)
-        equal, diffs = same_run(g, e)
-        rel = np.abs(np.array(g.history) / np.array(p.history) - 1)
-        hist, hist_all = float(rel[:P17_HIST[0]].max()), float(rel.max())
-        param = max(float((x - y).abs().max()) for x, y in
-                    zip(g._model.state_dict().values(), p._model.state_dict().values()))
-        sig, err = g.integrate(camel, 8, 1 << 21)
+                              opt=opt, **main_kw)
+        if opt is optimizers.adamax:
+            runs[bn] = (g, p)
+        equal, diffs = same_run(g, p)
         ran = g._last_epoch + 1
-        print(f"phase17 check 1 camel {bn} (batch {batch} in {mini}, {epochs} epochs, auto: "
-              f"chunks of {g._bench[6]['k0']}): {ran} epochs, best {g.best_epoch}; graph chunk vs "
-              f"eager chunk {'bit for bit' if equal else diffs}, launches fwd/bwd {g_n} / {e_n}; "
-              f"vs per-epoch: stop {p._last_epoch + 1}, best {p.best_epoch}, history max rel "
-              f"diff {hist:.3e} over the first {P17_HIST[0]} epochs ({hist_all:.3e} over all), "
-              f"parameters max |d| {param:.3e}; integral {sig:.6f} +- {err:.2e} "
-              f"(exact {exact:.6f}); train wall {g_s:.2f} / {e_s:.2f} / {p_s:.2f} s (graph / "
-              f"eager / per-epoch) = {g_s / ran * 1e3:.3f} / {e_s / ran * 1e3:.3f} / "
+        sig, err = g.integrate(camel, 8, 1 << 21)
+        print(f"phase17 check 1 {name} (batch {batch} in {mini}, {epochs} epochs, default "
+              f"cadence: chunks of {g._bench[6]['k0']}): {ran} epochs, best {g.best_epoch}; "
+              f"graph chunk vs per-epoch run {'bit for bit' if equal else diffs} (history, "
+              f"best and stop, parameters, buffers, optimizer state with its step, "
+              f"generator); launches fwd/bwd/update {g_n} / per-epoch {p_n}; integral "
+              f"{sig:.6f} +- {err:.2e} (exact {exact:.6f}); train wall {g_s:.2f} / {p_s:.2f} s "
+              f"(graph / per-epoch) = {g_s / ran * 1e3:.3f} / "
               f"{p_s / (p._last_epoch + 1) * 1e3:.3f} ms an epoch {card}")
-        check(equal and g_n == e_n, f"camel {bn}: graph chunk equals the eager chunk")
-        check((g._last_epoch, g.best_epoch) == (p._last_epoch, p.best_epoch),
-              f"camel {bn}: the chunk stops and takes its best where the per-epoch run does")
-        check(hist <= P17_HIST[1], f"camel {bn}: the first {P17_HIST[0]} epochs' losses within "
-              f"{P17_HIST[1]:g} of the per-epoch run's")
+        check(equal, f"{name}: the graph chunk equals the per-epoch run bit for bit")
+        check(g_n[2] == ran and p_n[2] == 0,
+              f"{name}: the update kernel launched {g_n[2]} times in {ran} chunked epochs")
         check(math.isfinite(sig) and err > 0 and abs(sig - exact) <= 5 * err + 0.01 * exact,
-              f"camel {bn} chunked: |sig - exact| <= 5 err + 1%")
+              f"{name} chunked: |sig - exact| <= 5 err + 1%")
         if bn == "stale":
             refreshes = sum(1 for i in range(ran) if i % 4 == 0)
-            check(g_n == (ran * batch // mini + refreshes, ran * batch // mini),
-                  f"camel stale graph chunk launched fwd/bwd {g_n}")
-        # the minibatch and the refresh batch (min(minibatch, 2^16)) alike
-        hold(f"chunked camel {bn}", g, (mini, min(mini, 1 << 16)))
+            check(g_n[:2] == (ran * batch // mini + refreshes, ran * batch // mini),
+                  f"camel stale graph chunk launched fwd/bwd {g_n[:2]}")
+        if opt is optimizers.adamax:
+            # the minibatch and the refresh batch (min(minibatch, 2^16)) alike
+            hold(f"chunked {name}", g, (mini, min(mini, 1 << 16)))
 
     # ---- check 2: bench.py's stale stages at epochs_per_sync=6: launches;
-    # the graph run against the eager chunk's run (the same capturable
-    # optimizer) bit for bit; then on copies of their trained states, a chunk
-    # of the graph runner (its epochs after the first are replays) against
-    # the same epochs launched eagerly, with host syncs made errors, bit for
-    # bit; and the kernels against their plain versions at the stage's sizes
+    # the graph run and the eager chunk's run (_graphs=False, the same update
+    # kernel) against the per-epoch run bit for bit; then on copies of their
+    # trained states, a chunk of the graph runner (its epochs after the
+    # first are replays) against the same epochs launched eagerly, with host
+    # syncs made errors, bit for bit; and the kernels against their plain
+    # versions at the stage's sizes
     n_ep, k_sync = P17_STAGES
     stages = {}
     for name, n_flow, args, kwargs, b, m, f, seed in (
@@ -1799,22 +1941,27 @@ def phase17(dev, card, gen, hold_train):
             ("flagship10d_rank4 batch 2^20 / 2^18", 10, (8, 8, [16, 16]), {"final_rank": 4},
              1 << 20, 1 << 18, flat_f, 4)):
         stage_kw = dict(batch_size=b, mini_batch_size=m, epochs=n_ep, preburn_time=0,
-                        epochs_per_sync=k_sync, bn_stats="stale")
+                        bn_stats="stale")
         torch.cuda.reset_peak_memory_stats()
-        NF, _, n = trained(n_flow, seed, args, kwargs, f, **stage_kw)
+        NF, _, n = trained(n_flow, seed, args, kwargs, f, epochs_per_sync=k_sync, **stage_kw)
         peak = torch.cuda.max_memory_allocated()
         count(n)
-        stages[name] = NF
         mbs = n_ep * (b // m)
-        expected = (mbs + sum(1 for i in range(n_ep) if i % 4 == 0), mbs)
-        check(n == expected, f"{name}: chunked stale stage launched fwd/bwd {n}, not {expected}")
-        NF_e, _, n_e = trained(n_flow, seed, args, kwargs, f, graphs=False, **stage_kw)
-        equal, diffs = same_run(NF, NF_e)
-        check(equal and n == n_e, f"{name}: graph stage run equals the eager chunk's run")
+        expected = (mbs + sum(1 for i in range(n_ep) if i % 4 == 0), mbs, n_ep)
+        check(n == expected, f"{name}: chunked stale stage launched fwd/bwd/update {n}, not "
+              f"{expected}")
+        NF_e, _, n_e = trained(n_flow, seed, args, kwargs, f, graphs=False,
+                               epochs_per_sync=k_sync, **stage_kw)
+        NF_p, _, _ = trained(n_flow, seed, args, kwargs, f, epochs_per_sync=1, **stage_kw)
+        stages[name] = (NF, NF_p)
+        equal, diffs = same_run(NF, NF_p)
+        equal_e, diffs_e = same_run(NF_e, NF_p)
+        check(equal and equal_e and n == n_e,
+              f"{name}: graph and eager chunk runs equal the per-epoch run")
         out = []
         for mgr in (NF, NF_e):
             runner, k, init = mgr._bench_chunk(seed=77)
-            pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = 0
+            pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = optim_step.LAUNCHES = 0
             if runner.graphs:
                 rows = runner.run(0, k, init)
             else:
@@ -1827,14 +1974,15 @@ def phase17(dev, card, gen, hold_train):
             torch.cuda.synchronize()
             out.append((rows.cpu(), state_digest(runner.model),
                         [t.cpu() for t in runner._opt_tensors()],
-                        (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES)))
+                        (pt.FWD_LAUNCHES, pt.BWD_LAUNCHES, optim_step.LAUNCHES)))
         (rows_g, dig_g, opt_g, n_g), (rows_e, dig_e, opt_e, n_e) = out
         same = (torch.equal(rows_g, rows_e) and dig_g == dig_e and n_g == n_e
                 and all(torch.equal(a, b) for a, b in zip(opt_g, opt_e)))
-        print(f"phase17 check 2 {name}: stale stage at epochs_per_sync={k_sync} launched fwd/bwd "
-              f"{n} (peak memory {peak / 2**30:.2f} GiB), against the eager chunk's run "
-              f"{'bit for bit' if equal else diffs}; a chunk of {k} epochs, {k - 1} of them "
-              f"replays: rows, parameters, buffers and optimizer state "
+        print(f"phase17 check 2 {name}: stale stage at epochs_per_sync={k_sync} launched "
+              f"fwd/bwd/update {n} (peak memory {peak / 2**30:.2f} GiB); graph chunk run vs "
+              f"per-epoch run {'bit for bit' if equal else diffs}, eager chunk run vs per-epoch "
+              f"run {'bit for bit' if equal_e else diffs_e}; a chunk of {k} epochs, {k - 1} of "
+              f"them replays: rows, parameters, buffers and optimizer state "
               f"{'bit for bit' if same else 'DIFFER'} against eager launches (no host sync "
               f"there), launches {n_g} / {n_e} {card}")
         check(same, f"{name}: graph replays equal eager launches")
@@ -1842,45 +1990,28 @@ def phase17(dev, card, gen, hold_train):
 
     # ---- check 3: a stop by the kill counter inside a chunk.  The chunk
     # length is the per-epoch run's stop + 2, so the stop falls inside the
-    # first chunk.  At lr 0 the capturable and the per-epoch step round
-    # alike, and the chunk leaves the per-epoch run's state bit for bit; at
-    # lr 2e-3 it leaves the state of the chunked run whose budget ends at the
-    # stop (tests/test_resume.py:82)
+    # first chunk, which is replayed up to it: the run leaves the per-epoch
+    # run's state bit for bit
     b, m, n_ep = P17_KILL
     for bn in ("stale", "batch"):
         kill_kw = dict(batch_size=b, mini_batch_size=m, epochs=n_ep, preburn_time=0,
                        kill_counter=1, bn_stats=bn, integrate=True)
-        p, _, _ = trained(2, 6, *camel_model, camel, lr=0.0, epochs_per_sync=1, **kill_kw)
+        p, _, _ = trained(2, 6, *camel_model, camel, epochs_per_sync=1, **kill_kw)
         s = p._last_epoch
-        g, _, _ = trained(2, 6, *camel_model, camel, lr=0.0, epochs_per_sync=s + 2, **kill_kw)
-        equal0, diffs0 = same_run(g, p)
-        # (no tail integration here: the run that ends at the stop has none)
-        kill_kw["integrate"] = False
-        p2, _, _ = trained(2, 6, *camel_model, camel, epochs_per_sync=1, **kill_kw)
-        s2 = p2._last_epoch
-        a, _, _ = trained(2, 6, *camel_model, camel, epochs_per_sync=s2 + 2, **kill_kw)
-        c, _, _ = trained(2, 6, *camel_model, camel, epochs_per_sync=s2 + 2,
-                          **dict(kill_kw, epochs=a._last_epoch + 1, kill_counter=10_000))
-        equal2, diffs2 = same_run(a, c)
-        print(f"phase17 check 3 camel {bn}: lr 0: per-epoch stop at {s}, chunks of {s + 2}: "
-              f"{'bit for bit' if equal0 else diffs0}; lr 2e-3: per-epoch stop {s2}, chunked "
-              f"stop {a._last_epoch} (chunks of {s2 + 2}) against the chunked run of "
-              f"{a._last_epoch + 1} epochs: {'bit for bit' if equal2 else diffs2}")
-        check(s < n_ep - 1 and equal0, f"{bn}: mid-chunk kill stop leaves the per-epoch state")
-        check(a._last_epoch == s2 < n_ep - 1 and equal2,
-              f"{bn}: mid-chunk kill stop leaves the state of the run that ends there")
+        g, _, _ = trained(2, 6, *camel_model, camel, epochs_per_sync=s + 2, **kill_kw)
+        equal, diffs = same_run(g, p)
+        print(f"phase17 check 3 camel {bn}: per-epoch stop at {s}, chunks of {s + 2}: "
+              f"{'bit for bit' if equal else diffs}")
+        check(s < n_ep - 1 and equal, f"{bn}: mid-chunk kill stop leaves the per-epoch state")
 
     # ---- check 4: times, paired P/C/C/P (benchmark_train_step, CUDA
     # events): per-epoch against chunked, camel at batch 10000 (check 1's
-    # runs) and the flagship stale stage (check 2's, against a per-epoch run
-    # of it); then the chunked stale trainers' device profiles
-    flag_p, _, _ = trained(10, 4, (8, 8, [16, 16]), {"final_rank": 4}, flat_f,
-                           batch_size=1 << 20, mini_batch_size=1 << 18, epochs=n_ep,
-                           preburn_time=0, epochs_per_sync=1, bn_stats="stale")
+    # runs) and the flagship stale stage (check 2's); then the chunked stale
+    # trainers' device profiles
+    flag_g, flag_p = stages["flagship10d_rank4 batch 2^20 / 2^18"]
     pairs = ((f"camel batch {batch} in {mini} bn_stats=batch", *runs["batch"][::-1], 11),
              (f"camel batch {batch} in {mini} bn_stats=stale", *runs["stale"][::-1], 11),
-             ("flagship10d_rank4 stale 2^20 / 2^18", flag_p,
-              stages["flagship10d_rank4 batch 2^20 / 2^18"], 5))
+             ("flagship10d_rank4 stale 2^20 / 2^18", flag_p, flag_g, 5))
     for what, per_epoch, chunked, reps in pairs:
         ms = [m.benchmark_train_step(reps=reps)[0] * 1e3
               for m in (per_epoch, chunked, chunked, per_epoch)]
@@ -1888,18 +2019,22 @@ def phase17(dev, card, gen, hold_train):
               f"(chunks of {chunked._bench[6]['k0']}) {ms[1]:.3f} / {ms[2]:.3f} ms (CUDA events, "
               f"P/C/C/P) {card}")
     for what, mgr in ((f"camel stale trainer, batch {batch} in {mini}", runs["stale"][0]),
-                      ("flagship stale trainer, batch 2^20 / 2^18",
-                       stages["flagship10d_rank4 batch 2^20 / 2^18"])):
-        runner, k, init = mgr._bench_chunk()
+                      ("flagship stale trainer, batch 2^20 / 2^18", flag_g)):
+        # tables for four chunks: this run and device_profile's up to three
+        runner, k, init = mgr._bench_chunk(chunks=4)
         runner.run(0, k, init).tolist()       # the captures, outside the profile
         device_profile("phase17 check 4", f"chunked {what}, one chunk of {k} epochs",
                        lambda: runner.run(0, k, init).tolist(), card)
 
-    # ---- check 5: memory and the phase's time
+    # ---- check 5: memory and the phase's time so far
     print(f"phase17 check 5: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} "
-          f"GiB since check 2's flagship stage; phase 17 {time.perf_counter() - t_phase:.1f} s "
-          f"{card}")
-    return launches, errors
+          f"GiB since check 2's flagship stage; phase 17 checks 1-5 "
+          f"{time.perf_counter() - t_phase:.1f} s {card}")
+
+    # ---- check 6: the update kernel against torch's step and its plain version
+    update = update_check(dev, card)
+    print(f"phase17: {time.perf_counter() - t_phase:.1f} s {card}")
+    return launches, errors, update
 
 
 def main():
@@ -1917,7 +2052,7 @@ def main():
     from nf_tpu_torch.flows.model import Flow, FlowModel, make_cell_cfg
     from nf_tpu_torch.flows import sampling as fsampling
     from nf_tpu_torch.flows.fast_eval import make_folded_forward
-    from nf_tpu_torch.ops import _build
+    from nf_tpu_torch.ops import _build, optim_step
     from nf_tpu_torch.ops import pwquad_sampler as ps
     from nf_tpu_torch.ops import pwquad_train as pt
     from nf_tpu_torch.training import optimizers
@@ -2012,19 +2147,45 @@ def main():
     check(abs(mean_jac - 1.0) < 0.02, "|mean(jac) - 1| < 0.02")
     check(dmean < 0.02, "mean(x) vs plain within 0.02")
 
-    # ---- phase 5: the main path
+    # ---- phase 5: the main path (the trainer at its default cadence:
+    # chunks of epochs replayed as CUDA graphs, the optimizer's step the
+    # update kernel), then the same run at epochs_per_sync=1 beside it
     exact = camel_exact()
+    main_kw = dict(log=False, batch_size=10000, epochs=150, mini_batch_size=10000,
+                   preburn_time=20, integrate=False, pretty_progressbar=False)
     NF = PWQuadManager(n_flow=2, seed=0, device="cuda")
     NF.create_model(2, 4, [3] * 3)
-    ps.LAUNCHES = 0
+    ps.LAUNCHES = optim_step.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    NF._train_variance_forward_seq(
-        camel, optimizers.adamax(2e-3, 1e-4), log=False, batch_size=10000, epochs=150,
-        mini_batch_size=10000, preburn_time=20, integrate=False, pretty_progressbar=False)
+    NF._train_variance_forward_seq(camel, optimizers.adamax(2e-3, 1e-4), **main_kw)
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
+    update_launches = optim_step.LAUNCHES
     n_epochs = NF._last_epoch + 1
+    k0 = NF._bench[6]["k0"]
+    # the same run per epoch, then at the default again: the process's first
+    # training pays its start-up (kernels loaded on first use, cuBLAS)
+    walls = []
+    for cadence in (1, "auto"):
+        other = PWQuadManager(n_flow=2, seed=0, device="cuda")
+        other.create_model(2, 4, [3] * 3)
+        t0 = time.perf_counter()
+        other._train_variance_forward_seq(camel, optimizers.adamax(2e-3, 1e-4),
+                                          epochs_per_sync=cadence, **main_kw)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) / n_epochs * 1e3)
+        if cadence == 1:
+            equal, diffs = same_run(NF, other)
+    print(f"phase5: default cadence (chunks of {k0}, CUDA graphs) {train_s / n_epochs * 1e3:.3f} "
+          f"ms an epoch as the process's first training, {walls[1]:.3f} ms run again, against "
+          f"{walls[0]:.3f} ms at epochs_per_sync=1 (train wall, host clock, capture included); "
+          f"the default and the per-epoch run {'bit for bit' if equal else diffs}; update "
+          f"kernel launches {update_launches} {card}")
+    check(NF._bench[6]["graphs"] and update_launches == n_epochs,
+          f"main path: {update_launches} update kernel launches in {n_epochs} graph-chunked "
+          "epochs")
+    check(equal, "main path: the default cadence equals epochs_per_sync=1 bit for bit")
     x, jac = NF.sample(1 << 24)
     check(x.shape == (1 << 24, 2) and bool(torch.isfinite(jac).all()), "sample() output")
     check(bool(((x >= 0) & (x <= 1)).all()), "sample() x in [0, 1]")
@@ -2325,7 +2486,8 @@ def main():
     # bench.py's flagship stale stage
     for what, mgr in (("stale trainer, batch 10000", NF_s), ("batch trainer, batch 10000", NF),
                       ("flagship stale trainer, batch 2^20 / 2^18", flagship_stale)):
-        epochs_run = 2 * (4 if "stale" in what else 1)
+        # a warm-up and a timed rep, each a chunk of the run's length
+        epochs_run = 2 * mgr._bench[6]["k0"]
         device_profile("phase9b", f"{what}, {epochs_run} epochs",
                        lambda: mgr.benchmark_train_step(reps=1), card)
 
@@ -2579,7 +2741,7 @@ def main():
     dp_launches = phase16(dev, card, NF)
 
     # ---- phase 17: the chunked epoch cadence
-    chunk_launches, chunk_err = phase17(dev, card, gen, hold_train)
+    chunk_launches, chunk_err, update = phase17(dev, card, gen, hold_train)
 
     camel_t = timings["camel2d_trained"]
     camel_tt = train_t["camel2d_trained"]
@@ -2623,6 +2785,18 @@ def main():
         "bound_ms": bounds["camel2d_trained", "bwd"][0],
         "bound_by": bounds["camel2d_trained", "bwd"][1],
         "library_ms": None,
+    }, {
+        "name": "optim_step",
+        "route": "cuda",
+        "source": "nf_tpu_torch/ops/csrc/optim_step.cu",
+        "replaces": "torch.optim Adamax/Adam foreach step (nf_tpu: optax, no Pallas kernel)",
+        "launches": update_launches + chunk_launches[2],
+        "max_abs_err": update["max_abs_err"],
+        "ms": update["ms"],
+        "plain_ms": update["plain_ms"],
+        "bound_ms": update["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": update["library_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,7 +1,8 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
-At first use, :func:`library` compiles every ``csrc/*.cu`` (which include
-``csrc/flow_plan.cuh``) into one shared library with a plain C interface,
+At first use, :func:`library` compiles every ``csrc/*.cu`` (the sampler and
+the training kernels, which include ``csrc/flow_plan.cuh``, and the
+optimizer update) into one shared library with a plain C interface,
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
          -Xcompiler -fPIC -o build/<hash>/libnf_tpu_torch_kernels.so csrc/*.cu
@@ -79,6 +80,9 @@ def library() -> ctypes.CDLL:
     lib.nf_pwquad_train_bwd.argtypes = [p, i, p, i, p, p, p, p, p, p, i64, i, i, i, i, i,
                                         i, i64, p, i64, i, ctypes.POINTER(ctypes.c_int), p]
     lib.nf_pwquad_train_bwd.restype = i
+    d = ctypes.c_double
+    lib.nf_optim_step.argtypes = [i, i, i, p, p, p, p, p, p, p, p, i64, d, d, d, d, d, i, p]
+    lib.nf_optim_step.restype = i
     for limits in (lib.nf_pwquad_sampler_limits, lib.nf_pwquad_train_limits):
         limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
         limits.restype = i

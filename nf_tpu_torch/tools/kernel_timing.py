@@ -241,12 +241,14 @@ def time_tree(tree, trainers_only=False):
         lambda x: torch.ones(x.shape[0], dtype=x.dtype, device=x.device),
         optimizers.adamax(2e-3, 1e-4), log=False, batch_size=1 << 20, epochs=1,
         pretty_progressbar=False, mini_batch_size=1 << 18, integrate=False, preburn_time=0,
-        bn_stats="stale")
+        bn_stats="stale", epochs_per_sync=1)
     sec, sps = NF.benchmark_train_step(reps=5)
     out["flagship_stale_epoch_ms"] = sec * 1e3
     out["flagship_stale_samples_per_s"] = sps
     # the camel-2D main path's trainers at chip_smoke.py phase 5's batch:
-    # 150 epochs on the host clock (no early stop), then benchmark_train_step
+    # 150 epochs on the host clock (no early stop), then benchmark_train_step;
+    # the per-epoch cadence throughout, as a tree from before the chunked
+    # default runs it
     for bn_stats in ("batch", "stale"):
         NF = PWQuadManager(n_flow=2, seed=0, device="cuda")
         NF.create_model(2, 4, [3] * 3)
@@ -255,7 +257,7 @@ def time_tree(tree, trainers_only=False):
         NF._train_variance_forward_seq(
             camel, optimizers.adamax(2e-3, 1e-4), log=False, batch_size=10000, epochs=150,
             mini_batch_size=10000, preburn_time=20, kill_counter=1000,
-            pretty_progressbar=False, bn_stats=bn_stats)
+            pretty_progressbar=False, bn_stats=bn_stats, epochs_per_sync=1)
         torch.cuda.synchronize()
         out[f"camel_{bn_stats}_150_epochs_host_ms"] = (time.perf_counter() - t0) * 1e3 / 150
         out[f"camel_{bn_stats}_epoch_ms"] = NF.benchmark_train_step(reps=11)[0] * 1e3

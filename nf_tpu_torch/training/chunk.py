@@ -27,46 +27,89 @@ the run, on the runner's stream, then captured (capture records and runs
 nothing), and replayed from then on; a chunk is ``k`` replays launched
 without a host sync.  The manager's generator is registered with each graph,
 so a replay draws what an eager epoch draws at the same offset.  The
-training kernels' launch counters (``pwquad_train.FWD_LAUNCHES`` /
-``BWD_LAUNCHES``) are Python counters, which a replay does not move: the
-launches a capture recorded are added once per replay, and the capture
-itself counts none.  A failed capture or replay raises; nothing
-falls back to the eager chunk.  The optimizer must be capturable
-(:func:`~nf_tpu_torch.training.optimizers.set_capturable`) and its state
-must exist before the capture: the eager first epoch makes it.
+kernels' launch counters (``pwquad_train.FWD_LAUNCHES`` / ``BWD_LAUNCHES``,
+``optim_step.LAUNCHES``) are Python counters, which a replay does not move:
+the launches a capture recorded are added once per replay, and the capture
+itself counts none.  A failed capture or replay raises, naming the call that
+could not be captured; nothing falls back to the eager chunk.  A capture
+keeps CUPTI set up between profiler traces from then on (:func:`_keep_cupti`):
+torn down and set up again after a capture, it drops device records.
+
+The optimizer's step inside a graph is the manager's ``stepper``, a
+:class:`~nf_tpu_torch.training.optimizers.DeviceStep`: the update kernel,
+which reads each step's bias correction from float64 tables at a step count
+on the device, so a replay rounds as torch's per-epoch step does and a chunk
+on the card equals the per-epoch run bit for bit.  The runner counts the
+``k`` steps of each chunk on it (:meth:`~nf_tpu_torch.training.optimizers
+.DeviceStep.advance`).  An optimizer the kernel does not cover runs torch's
+capturable step instead (``stepper`` is ``None``), which rounds its bias
+correction otherwise: there the two cadences agree within that rounding.
+The optimizer's state must exist before the capture: the eager first epoch
+makes it.
 
 :meth:`EpochChunk.save` and :meth:`EpochChunk.restore` let the manager
 replay a chunk from its start up to a stop that fell inside it, so a
-mid-chunk stop leaves the parameters, buffers, optimizer state and generator
-state of the stop epoch.  The optimizer's state must start at zeros (it
-does for torch.optim's Adam family): a chunk that began before the first
-step restores it as zeros.
+mid-chunk stop leaves the parameters, buffers, optimizer state (the device
+step count too) and generator state of the stop epoch.  The optimizer's
+state must start at zeros (it does for torch.optim's Adam family): a chunk
+that began before the first step restores it as zeros.
 """
 
 from __future__ import annotations
 
 import contextlib
 import copy
-import warnings
+import os
+import traceback
 
 import torch
 
-from nf_tpu_torch.ops import pwquad_train
+from nf_tpu_torch.ops import optim_step, pwquad_train
 
-# the training kernels' launch counters, which a graph replay adds to
-COUNTERS = ("FWD_LAUNCHES", "BWD_LAUNCHES")
+# the kernels' launch counters, which a graph replay adds to
+COUNTERS = ((pwquad_train, "FWD_LAUNCHES"), (pwquad_train, "BWD_LAUNCHES"),
+            (optim_step, "LAUNCHES"))
 # one epoch's row: the five statistics of epoch_step, then the preburn flag
 # at the epoch's start and the kill counter after it
 ROW = 7
 
 
 def _counts():
-    return [getattr(pwquad_train, name) for name in COUNTERS]
+    return [getattr(module, name) for module, name in COUNTERS]
 
 
 def _add_counts(delta):
-    for name, d in zip(COUNTERS, delta):
-        setattr(pwquad_train, name, getattr(pwquad_train, name) + d)
+    for (module, name), d in zip(COUNTERS, delta):
+        setattr(module, name, getattr(module, name) + d)
+
+
+def _keep_cupti():
+    """Keep CUPTI set up between ``torch.profiler`` traces.  By default a
+    trace tears CUPTI down when it stops and sets it up again at the next;
+    after a process has captured a CUDA graph, the traces set up again lose
+    device records, some or all of a call's (chip_smoke.py phase 13 on an
+    NVIDIA H100 with CUDA 12.8: none of a ToyPDF call's six, three traces
+    running).  torch sets the
+    same two variables for inductor's CUDA graphs; the profiler reads them
+    when a trace stops."""
+    os.environ["TEARDOWN_CUPTI"] = "0"
+    os.environ["DISABLE_CUPTI_LAZY_REINIT"] = "1"
+
+
+def _first_error(error):
+    """The error a failed capture started with: ending the capture raises
+    another, whose context it is."""
+    while error.__context__ is not None and error.__context__ is not error:
+        error = error.__context__
+    return error
+
+
+def _culprit(error):
+    """The innermost call outside torch in ``error``'s traceback."""
+    frames = traceback.extract_tb(error.__traceback__)
+    outside = [f for f in frames if f"{os.sep}torch{os.sep}" not in f.filename]
+    f = (outside or frames)[-1]
+    return f"{f.filename}:{f.lineno} ({f.line})"
 
 
 def advance(pre, killed, counter, last_loss, b_metric, loss, ess, epoch, pre_ref, *,
@@ -100,17 +143,19 @@ class EpochChunk:
     ``refresh()`` the stale trainer's statistics refresh or ``None``, both
     from the manager's epoch runner; ``uniform(shape)`` draws latents from
     ``generator``.  ``graphs`` replays CUDA graphs of the epoch and the
-    refresh (module docstring).
+    refresh; ``stepper`` is the device step ``train`` steps through, or
+    ``None`` (module docstring).
     """
 
     def __init__(self, model, optimizer, train, refresh, uniform, generator, *,
                  n_minibatches, mini_batch_size, stats_every, preburn_time, kill_counter,
-                 by_ess, graphs):
+                 by_ess, graphs, stepper=None):
         p = next(model.parameters())
         device, dtype = p.device, p.dtype
         if graphs and device.type != "cuda":
             raise ValueError(f"CUDA graphs need a CUDA device, the model is on {device}")
         self.model, self.optimizer, self.generator = model, optimizer, generator
+        self.stepper = stepper
         self._train, self._refresh, self._uniform = train, refresh, uniform
         self._mb_shape = (mini_batch_size, model.flow.n_flow)
         self._n_mb, self._stats_every = n_minibatches, stats_every
@@ -181,13 +226,10 @@ class EpochChunk:
             graph.replay()
             _add_counts(self._captured[name])
             return
-        with warnings.catch_warnings():
-            # a capturable optimizer's eager step warns that it is slower so;
-            # here it runs eagerly on purpose, before its capture
-            warnings.filterwarnings("ignore", message=".*capturable=True.*")
-            fn()
+        fn()
         if not self.graphs:
             return
+        _keep_cupti()
         graph = torch.cuda.CUDAGraph()
         graph.register_generator_state(self.generator)
         before = _counts()
@@ -195,6 +237,13 @@ class EpochChunk:
             with torch.cuda.graph(graph, stream=self.stream):
                 fn()
             self._captured[name] = [b - a for a, b in zip(before, _counts())]
+        except RuntimeError as e:
+            first = _first_error(e)
+            raise RuntimeError(
+                f"the chunk's {name} could not be captured as a CUDA graph at "
+                f"{_culprit(first)}: {str(first).splitlines()[0]}.  A call inside the graph "
+                "read the host or copied from it; the integrand runs there and must be "
+                "capturable.  epochs_per_sync=1 trains without graphs") from e
         finally:
             _add_counts([a - b for a, b in zip(before, _counts())])
         self._graph[name] = graph
@@ -206,6 +255,8 @@ class EpochChunk:
         device, not read.  ``init = (preburn, counter, last_loss, best
         metric, best loss, best model)`` is the host machine's state at
         ``i0``."""
+        if self.stepper is not None:
+            self.stepper.advance(k)
         device = self._row.device
         rows = torch.empty((k, ROW), dtype=self._row.dtype, device=device)
         ctx = contextlib.nullcontext()
@@ -246,12 +297,13 @@ class EpochChunk:
         with torch.no_grad():
             self._saved = ([t.detach().clone() for t in self._live],
                            [t.clone() for t in self._opt_tensors()],
-                           self.generator.get_state())
+                           self.generator.get_state(),
+                           None if self.stepper is None else self.stepper.save())
 
     def restore(self):
         """Put back the state :meth:`save` kept, in place (a graph holds the
         tensors): optimizer state made after it restarts at zeros."""
-        live, opt, gen_state = self._saved
+        live, opt, gen_state, step = self._saved
         with torch.no_grad():
             for t, s in zip(self._live, live):
                 t.copy_(s)
@@ -262,6 +314,8 @@ class EpochChunk:
             else:
                 for t in tensors:
                     t.zero_()
+            if step is not None:
+                self.stepper.restore(step)
         self.generator.set_state(gen_state)
 
     def best_model(self):

@@ -8,26 +8,29 @@ preburn, ``maxf`` normalization, the early-stop state machine, the tail
 integration and the inverse-variance combination replicate nf_tpu, which
 replicates the reference.  Variances are *unbiased* throughout (torch.var).
 
-The trainer runs at nf_tpu's two cadences.  ``epochs_per_sync=1`` (the
-port's default) is the per-epoch one: one host sync per epoch, for the
-scalars the host state machine needs.  An int ``k > 1``, or ``"auto"`` (``k``
-= the stale check's period, ``preburn_time`` if above 10, else 50: nf_tpu's
-default), runs chunks of ``k`` epochs to one host read, with the state
-machine on the device (:mod:`nf_tpu_torch.training.chunk`): on the card
-without a mesh each epoch and each statistics refresh is a replayed CUDA
-graph, with the optimizer made capturable; on the CPU and under ``mesh`` the
-chunk runs eagerly (NCCL is not captured), every decision read from
-all-reduced values.  The host replays its state machine over each chunk's
-rows (bookkeeping, logging, ``progress_callback`` and the progress bar per
-epoch, at chunk cadence) and raises ``RuntimeError`` where the two disagree.
-A stop inside a chunk, by the kill counter or the host's stale check,
-replays the chunk from its start up to the stop epoch, so the model, the
-optimizer, the best snapshot and the generator are those of the stop.  A
-chunk draws its latents in the per-epoch order, so chunking changes no
-number: on the CPU a chunked run equals the per-epoch run bit for bit
-(nf_tpu's chunk draws other latents, through its key split).  On the card the
-capturable optimizer rounds its bias correction otherwise than the
-per-epoch one, so the two cadences agree there within that rounding.
+The trainer runs at nf_tpu's two cadences.  ``epochs_per_sync="auto"``
+(the default, as nf_tpu's) or an int ``k > 1`` runs chunks of ``k`` epochs
+to one host read (``"auto"``: ``k`` = the stale check's period,
+``preburn_time`` if above 10, else 50), with the state machine on the device
+(:mod:`nf_tpu_torch.training.chunk`).  On the card without a mesh each epoch
+and each statistics refresh is a replayed CUDA graph, so the integrand ``f``
+must be capturable there, as nf_tpu's must be jittable: no host read, no
+host-to-device copy.  The optimizer's step there is the update kernel
+(:func:`~nf_tpu_torch.training.optimizers.device_step`), which gives torch's
+per-epoch step's bits; an optimizer it does not cover is made capturable.
+On the CPU and under ``mesh`` the chunk runs eagerly (NCCL is not
+captured), every decision read from all-reduced values.  The host replays
+its state machine over each chunk's rows (bookkeeping, logging,
+``progress_callback`` and the progress bar per epoch, at chunk cadence) and
+raises ``RuntimeError`` where the two disagree.  A stop inside a chunk, by
+the kill counter or the host's stale check, replays the chunk from its start
+up to the stop epoch, so the model, the optimizer, the best snapshot and the
+generator are those of the stop.  A chunk draws its latents in the per-epoch
+order, so chunking changes no number: a chunked run equals the per-epoch run
+bit for bit, on the CPU and on the card (nf_tpu's chunk draws other latents,
+through its key split).  ``epochs_per_sync=1`` is the per-epoch cadence: one
+host sync per epoch, for the scalars the host state machine needs, and no
+graph.
 
 ``bn_stats="stale"`` is nf_tpu's stale-statistics trainer: within an epoch
 BatchNorm is folded into the weights with the running statistics held fixed
@@ -86,7 +89,7 @@ from nf_tpu_torch.parallel.dp import (all_reduce_max, all_reduce_sum, average_gr
                                       broadcast_replicas, global_mean, global_mean_var)
 from nf_tpu_torch.parallel.mesh import group_of, rank_and_size, shard_rows
 from nf_tpu_torch.training import chunk as tchunk
-from nf_tpu_torch.training.optimizers import set_capturable
+from nf_tpu_torch.training.optimizers import device_step, set_capturable
 from nf_tpu_torch.utils import checkpoint
 
 
@@ -323,7 +326,7 @@ class BasicManager:
                                     preburn_time=75, kill_counter=7,
                                     impr_ratio=1e-2, loss_mode="var",
                                     seed=None, mesh=None, pathwise=False,
-                                    epochs_per_sync=1, select_best_by="loss",
+                                    epochs_per_sync="auto", select_best_by="loss",
                                     resume_from=None, progress_callback=None,
                                     bn_stats="batch", stats_every=4, _graphs=None):
         """Train with the integrand variance as loss; the Jacobian comes from
@@ -342,10 +345,14 @@ class BasicManager:
         trains data-parallel (module docstring): the minibatch and the
         statistics batch must divide by the mesh size (else ``ValueError``),
         and the first rank's parameters, buffers and generator state are
-        broadcast to the others at the start.  ``epochs_per_sync``: 1, an int
-        ``k > 1`` or ``"auto"`` (module docstring); an int below 1 counts as 1.
-        ``_graphs`` (tests) overrides where the chunk replays CUDA graphs:
-        ``False`` runs it eagerly on the card.  Returns ``(integral, error)``
+        broadcast to the others at the start.  ``epochs_per_sync``:
+        ``"auto"`` (the default, nf_tpu's), an int ``k > 1`` or 1, the
+        per-epoch cadence (module docstring); an int below 1 counts as 1.  On
+        the card without a mesh a chunk replays CUDA graphs, so ``f`` must be
+        capturable; a capture that fails raises, and ``epochs_per_sync=1``
+        trains without graphs.  ``_graphs`` (tests) overrides where the chunk
+        replays CUDA graphs: ``False`` runs it eagerly on the card, with the
+        same update kernel.  Returns ``(integral, error)``
         when ``integrate`` else ``(0, 0)``.
         """
         if bn_stats not in ("batch", "stale"):
@@ -403,12 +410,17 @@ class BasicManager:
         optimizer = optimizer_object(model.parameters())
         if rs is not None:
             optimizer.load_state_dict(rs["opt"])
-        set_capturable(optimizer, chunked and on_card)
+        # a chunk on the card steps through the update kernel (device_step
+        # takes parameters on a CUDA device only); an optimizer it does not
+        # cover is made capturable
+        stepper = device_step(optimizer, epochs) if chunked and group is None else None
+        set_capturable(optimizer, chunked and on_card and stepper is None)
         epoch_cfg = {"f": f, "maxf": maxf, "loss_mode": loss_mode, "pathwise": pathwise,
                      "plan": pwquad_train.TrainPlan(self._flow) if bn_stats == "stale" else None,
                      # the refresh's bounded batch (nf_tpu manager.py:464)
                      "stats_batch": min(mini_batch_size, 1 << 16), "group": group}
-        train, refresh = self._epoch_runner(model, optimizer, self._uniform, **epoch_cfg)
+        train, refresh = self._epoch_runner(model, stepper or optimizer, self._uniform,
+                                            **epoch_cfg)
         by_ess = select_best_by == "ess"
         chunk_cfg = None
         if chunked:
@@ -506,7 +518,7 @@ class BasicManager:
                     break
         else:
             runner = tchunk.EpochChunk(model, optimizer, train, refresh, self._uniform,
-                                       self._gen, **chunk_cfg)
+                                       self._gen, stepper=stepper, **chunk_cfg)
             next_i, stop = epoch_start, False
             while next_i < epochs_end and not stop:
                 k = min(k0, epochs_end - next_i)
@@ -538,6 +550,8 @@ class BasicManager:
                                            "their first run")
                 if snapshots:   # the last, after the replay: the runner's best
                     self.best_model = runner.best_model()
+                if stepper is not None:
+                    stepper.write_steps()
                 next_i += k
 
         if pbar is not None:
@@ -549,7 +563,7 @@ class BasicManager:
         self._epoch_offset = epoch_offset
         self._last_epoch = i
         self._bench = (optimizer, epoch_cfg, n_minibatches, mini_batch_size, batch_size,
-                       stats_every, chunk_cfg and dict(chunk_cfg, k0=k0))
+                       stats_every, chunk_cfg and dict(chunk_cfg, k0=k0), stepper is not None)
 
         # ---- PHASE C: tail integration with the best model in eval mode
         # (reference manager.py:332-346; note the reference's asymmetric
@@ -652,9 +666,9 @@ class BasicManager:
         clock.  Counterpart of nf_tpu's ``benchmark_train_step``
         (manager.py:902-965), without its dispatch-latency differencing.
         """
-        _, _, n_mb, mb, batch_size, stats_every, chunk_cfg = self._bench
+        _, _, n_mb, mb, batch_size, stats_every, chunk_cfg, _ = self._bench
         if chunk_cfg is None:
-            _, _, train, refresh, uniform, _ = self._bench_copy()
+            _, _, _, train, refresh, uniform, _ = self._bench_copy()
             k = 1 if refresh is None else stats_every
 
             def rep():
@@ -662,7 +676,7 @@ class BasicManager:
                     ws = [uniform((mb, self.n_flow)) for _ in range(n_mb)]
                     self._epoch(train, refresh, stats_every, i, False, ws).tolist()
         else:
-            runner, k, init = self._bench_chunk()
+            runner, k, init = self._bench_chunk(chunks=reps + 1)
 
             def rep():
                 runner.run(0, k, init).tolist()
@@ -686,31 +700,37 @@ class BasicManager:
         sec = float(np.median(times))
         return sec, batch_size / sec
 
-    def _bench_copy(self, seed=1234):
+    def _bench_copy(self, seed=1234, steps=None):
         """The last run's epoch on deep copies of its model and optimizer,
         drawing from a generator of its own seeded with ``seed``: ``(model,
-        optimizer, train, refresh, uniform, generator)``
-        (:meth:`_epoch_runner`)."""
+        optimizer, stepper, train, refresh, uniform, generator)``
+        (:meth:`_epoch_runner`).  Where the run stepped through the update
+        kernel, so does the copy, through ``stepper``, a
+        :class:`~nf_tpu_torch.training.optimizers.DeviceStep` of its own for
+        ``steps`` more steps; else ``stepper`` is ``None``."""
         optimizer, cfg = self._bench[:2]
         # one deepcopy of both keeps the optimizer bound to the copied model
         model, optimizer = copy.deepcopy((self._model, optimizer))
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        stepper = device_step(optimizer, steps) if self._bench[7] else None
 
         def uniform(shape):
             return torch.rand(shape, generator=gen, dtype=self.dtype, device=self.device)
 
-        return (model, optimizer, *self._epoch_runner(model, optimizer, uniform, **cfg), uniform,
-                gen)
+        return (model, optimizer, stepper,
+                *self._epoch_runner(model, stepper or optimizer, uniform, **cfg), uniform, gen)
 
-    def _bench_chunk(self, seed=1234):
+    def _bench_chunk(self, seed=1234, chunks=2):
         """A chunked run's chunk on :meth:`_bench_copy`'s copies: ``(runner,
         k, init)``, the :class:`~nf_tpu_torch.training.chunk.EpochChunk` (on
-        graphs where the run replayed them), the run's chunk length and a
-        state machine outside preburn."""
-        model, optimizer, train, refresh, uniform, gen = self._bench_copy(seed)
+        graphs where the run replayed them) for ``chunks`` runs, the run's
+        chunk length and a state machine outside preburn."""
         cfg = dict(self._bench[6])
         k = cfg.pop("k0")
-        runner = tchunk.EpochChunk(model, optimizer, train, refresh, uniform, gen, **cfg)
+        model, optimizer, stepper, train, refresh, uniform, gen = self._bench_copy(seed,
+                                                                                   k * chunks)
+        runner = tchunk.EpochChunk(model, optimizer, train, refresh, uniform, gen,
+                                   stepper=stepper, **cfg)
         best = self.best_ess if cfg["by_ess"] else self.best_loss
         return runner, k, (False, 0, 1000.0, best, self.best_loss, model)
 

@@ -238,8 +238,9 @@ class HostReads(TorchDispatchMode):
 @pytest.mark.parametrize("bn_stats", ["batch", "stale"])
 def test_chunk_reads_nothing_back(bn_stats):
     """Two epochs of a chunk, a refresh among them, read no tensor back to
-    the host but the CPU optimizer's step counts (a capturable optimizer
-    keeps them on the card), so the epoch can be captured as a CUDA graph."""
+    the host but the CPU optimizer's step counts (on the card the update
+    kernel keeps its step count there), so the epoch can be captured as a
+    CUDA graph."""
     NF, _ = train(3, bn_stats, epochs=3, preburn_time=1, stats_every=1)
     runner, k, init = NF._bench_chunk()
     with HostReads() as mode:

@@ -158,7 +158,7 @@ def test_drell_yan_epoch_matches_nf_tpu():
 
     NF._uniform = uniform
     NF._train_variance_forward_seq(dy_integrand(tgen, tl, tpdf), toptim.adamax(2e-3, 1e-4),
-                                   **kw)
+                                   epochs_per_sync=1, **kw)
     assert not latents
     np.testing.assert_allclose(NF.history, NFj.history, rtol=1e-9)
     np.testing.assert_allclose(NF.best_loss, NFj.best_loss, rtol=1e-9)

@@ -13,8 +13,9 @@ parameters and draws as ``.npz`` files.  Held:
   * one ``make_dp_train_step`` with Adamax against nf_tpu's;
   * ``dp_sample`` and ``dp_integrate`` against nf_tpu's on nf_tpu's
     per-device draws, replayed through ``parallel.sampling._uniform``;
-  * both trainers, ``sample``, ``integrate`` and ``generate_unweighted``
-    under ``mesh=`` and two epochs of ``train_multichannel`` against the
+  * both trainers at the default cadence and at ``epochs_per_sync=1``,
+    ``sample``, ``integrate`` and ``generate_unweighted`` under ``mesh=``
+    and two epochs of ``train_multichannel`` against the
     single-process port (``mesh=None``) on the same seeds, at rtol 1e-8
     (1e-6 where the port computes in float32: the stale trainer's map and
     the unweighter's proposals).
@@ -85,18 +86,22 @@ COMMON = textwrap.dedent("""
 
     def scenarios(mesh):
         out = {}
-        for bn_stats in ("stale", "batch"):
-            NF = PWQuadManager(n_flow=2, seed=0, dtype=torch.float64, device="cpu")
-            NF.create_model(2, 4, [4] * 2)
-            NF._train_variance_forward_seq(
-                camel, optimizers.adamax(2e-3, 1e-4), log=False, batch_size=256, epochs=6,
-                mini_batch_size=128, preburn_time=2, integrate=True, pretty_progressbar=False,
-                bn_stats=bn_stats, stats_every=2, mesh=mesh)
-            out[bn_stats + ".history"] = np.array(NF.history)
-            out[bn_stats + ".integ_hist"] = NF._integ_hist
-            out[bn_stats + ".result"] = np.array([NF.integ_tot, NF.err_tot])
-            for k, v in NF.best_model.state_dict().items():
-                out[bn_stats + ".best." + k] = v.numpy()
+        # the per-epoch cadence (keys "per_epoch.*"), then the default
+        for cadence, tag in ((1, "per_epoch."), ("auto", "")):
+            for bn_stats in ("stale", "batch"):
+                NF = PWQuadManager(n_flow=2, seed=0, dtype=torch.float64, device="cpu")
+                NF.create_model(2, 4, [4] * 2)
+                NF._train_variance_forward_seq(
+                    camel, optimizers.adamax(2e-3, 1e-4), log=False, batch_size=256, epochs=6,
+                    mini_batch_size=128, preburn_time=2, integrate=True,
+                    pretty_progressbar=False, bn_stats=bn_stats, stats_every=2, mesh=mesh,
+                    epochs_per_sync=cadence)
+                key = tag + bn_stats
+                out[key + ".history"] = np.array(NF.history)
+                out[key + ".integ_hist"] = NF._integ_hist
+                out[key + ".result"] = np.array([NF.integ_tot, NF.err_tot])
+                for k, v in NF.best_model.state_dict().items():
+                    out[key + ".best." + k] = v.numpy()
         x, jac = NF.sample(256, seed=4, method="folded", mesh=mesh)
         out["sample.x"], out["sample.jac"] = x.numpy(), jac.numpy()
         out["integrate"] = np.array(NF.integrate(camel, 3, 256, seed=5, method="folded",
@@ -314,11 +319,11 @@ def test_dp_sample_and_integrate_match_nf_tpu(run):
 
 # float32 arithmetic: the stale trainer's folded map and the unweighter's
 # proposals; the ranks sum its results in another order
-FLOAT32 = ("stale.best.", "unweight.events", "unweight.weights")
+FLOAT32 = ("stale.best.", "per_epoch.stale.best.", "unweight.events", "unweight.weights")
 
 
-@pytest.mark.parametrize("part", ["batch.", "stale.", "sample.", "integrate", "unweight.",
-                                  "mc."])
+@pytest.mark.parametrize("part", ["batch.", "stale.", "per_epoch.batch.", "per_epoch.stale.",
+                                  "sample.", "integrate", "unweight.", "mc."])
 def test_mesh_entry_points_match_the_single_process_run(run, part):
     """At rtol 1e-8, as tests/test_parallel.py holds nf_tpu's mesh trainer;
     what is computed in float32 at 1e-6.  The atol covers BatchNorm shifts

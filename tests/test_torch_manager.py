@@ -328,7 +328,8 @@ def test_select_best_by_ess_matches_nf_tpu(bn_stats, seed):
         return torch.from_numpy(w)
 
     NF._uniform = uniform
-    NF._train_variance_forward_seq(camel_t, toptim.adamax(1e-2, 1e-4), **kw)
+    NF._train_variance_forward_seq(camel_t, toptim.adamax(1e-2, 1e-4), epochs_per_sync=1,
+                                   **kw)
     assert not latents
     rtol = 1e-9 if bn_stats == "batch" else 1e-5
     np.testing.assert_allclose(NF.history, NFj.history, rtol=rtol)

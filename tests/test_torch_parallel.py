@@ -161,23 +161,35 @@ def test_mesh_refusals(manager, monkeypatch):
         psampling.make_dp_integrator(flow, model, camel_t, None, 2, 10, "folded")
 
 
-def _train(mesh, bn_stats):
+def _train(mesh, bn_stats, **cadence):
     NF = PWQuadManager(n_flow=2, seed=0, dtype=torch.float64, device="cpu")
     NF.create_model(2, 4, [4] * 2)
     NF._train_variance_forward_seq(
         camel_t, optimizers.adamax(2e-3, 1e-4), log=False, batch_size=256, epochs=6,
         mini_batch_size=128, preburn_time=2, integrate=True, pretty_progressbar=False,
-        bn_stats=bn_stats, stats_every=2, mesh=mesh)
+        bn_stats=bn_stats, stats_every=2, mesh=mesh, **cadence)
     return NF
 
 
-@pytest.mark.parametrize("bn_stats", ["batch", "stale"])
-def test_world_of_one_trainer_is_the_single_device_run(world_of_one, bn_stats):
-    a, b = _train(world_of_one, bn_stats), _train(None, bn_stats)
+def _same_runs(a, b):
     assert a.history == b.history and (a.integ_tot, a.err_tot) == (b.integ_tot, b.err_tot)
     assert np.array_equal(a._integ_hist, b._integ_hist)
     for x, y in zip(a.best_model.state_dict().values(), b.best_model.state_dict().values()):
         assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("bn_stats", ["batch", "stale"])
+def test_world_of_one_trainer_is_the_single_device_run(world_of_one, bn_stats):
+    """At the default cadence: under a mesh the chunk runs eagerly."""
+    _same_runs(_train(world_of_one, bn_stats), _train(None, bn_stats))
+
+
+@pytest.mark.parametrize("bn_stats", ["batch", "stale"])
+def test_world_of_one_per_epoch_trainer_is_the_single_device_run(world_of_one, bn_stats):
+    """At ``epochs_per_sync=1``: the per-epoch loop under a mesh, one
+    all-reduce and one host read an epoch."""
+    _same_runs(_train(world_of_one, bn_stats, epochs_per_sync=1),
+               _train(None, bn_stats, epochs_per_sync=1))
 
 
 def test_world_of_one_endpoints_are_the_single_device_runs(world_of_one, manager):

@@ -106,13 +106,13 @@ def resumed_pair(tmp_path_factory):
     NF.best_model = copy.deepcopy(NF._model)
     NF._uniform = uniform
     NF._train_variance_forward_seq(camel_t, opt_t, epochs=8, run=run_t, logdir=str(tmp / "t"),
-                                   **kw)
+                                   epochs_per_sync=1, **kw)
     NF.save_training_state(tmp / "t.pt")
     NF2 = _manager(seed=4)
     NF2._uniform = uniform
     NF2._train_variance_forward_seq(camel_t, opt_t, epochs=8, epoch_start=8,
                                     resume_from=tmp / "t.pt", run=run_t,
-                                    logdir=str(tmp / "t"), **kw)
+                                    logdir=str(tmp / "t"), epochs_per_sync=1, **kw)
     assert not latents
     return NFj, run_j, NF2, run_t, tmp
 
