@@ -67,6 +67,14 @@ bit: the camel trainers (Adamax and Adam), bench.py's stale stages at
 chunk; then paired epoch times and device profiles, and the update kernel
 against torch's Adamax / Adam step and its plain version at the parameter
 shapes of four plans, timed beside torch's steps.
+Phase 18 is the per-op cost calibration (nf_tpu_torch/tools/calibrate_ops.py,
+the counterpart of tools/calibrate_vpu_ops.py): the op-chain kernel
+(``ops/csrc/op_chain.cu``) against its plain version for the ten ops, at
+the checks' size and at the calibration's, two launches bit for bit; the
+calibration at grid 1024 and K 64 / 320, each op's cost in FMA units and
+SASS instructions per step (the fma, mul and add chains one FFMA, FMUL,
+FADD a step); the flow kernels' op mix priced at those costs beside their
+bounds; and the fma chain's time beside its plain version's and its bound.
 Prints one ``{"kernels": [...]}`` line;
 the last line of standard output is ``{"ok": true, "device": {...}}``; any
 failed check exits non-zero before it is printed.  Exits non-zero at once
@@ -159,6 +167,37 @@ def kernel_work(pt, flow, kernel, n):
     return n * flops, n * per_sample + 4 * n_weights * (2 if kernel == "bwd" else 1)
 
 
+def op_mix(pt, flow, kernel):
+    """Per sample of ``flow``, the transcendentals and divisions one launch
+    of ``kernel`` runs, as written in csrc/flow_plan.cuh and
+    csrc/pwquad_train.cu for exp-positivity pwquad cells with nb bins, per
+    transformed dimension: the forward (sampler, training forward)
+    ``2 nb + 1`` expf and ``2 nb + 2`` IEEE divisions; the backward's
+    recompute and VJP ``5 nb + 3`` expf and ``3 nb + 5`` divisions.
+    ``{"flops", "expf", "div"}``, with ``kernel_work``'s FLOPs (an expf or
+    a division one FLOP there); None for a plan with other cells."""
+    flops = kernel_work(pt, flow, kernel, 1)[0]
+    n_exp = n_div = 0
+    for cfg in flow.cells:
+        if cfg.kind != "pwquad" or cfg.activation != "exp":
+            return None
+        t, nb = flow.n_flow - cfg.pass_through, cfg.n_bins
+        e, d = (5 * nb + 3, 3 * nb + 5) if kernel == "bwd" else (2 * nb + 1, 2 * nb + 2)
+        n_exp, n_div = n_exp + t * e, n_div + t * d
+    return {"flops": flops, "expf": n_exp, "div": n_div}
+
+
+def op_model_ms(mix, n, sec_per_op):
+    """The time ``n`` samples of ``mix`` take at the measured per-op costs
+    (``sec_per_op[op]``, seconds per op per element): expf and divisions
+    at theirs, the rest of the FLOPs at one fma per two FLOPs.  An op model,
+    not a bound: the FP32 pipe and the special-function unit overlap."""
+    rest = (mix["flops"] - mix["expf"] - mix["div"]) / 2
+    per = (rest * sec_per_op["fma"] + mix["expf"] * sec_per_op["exp"]
+           + mix["div"] * sec_per_op["div"])
+    return n * per * 1e3
+
+
 def bound_ms(flops, nbytes):
     """The least time the card could take: ``(ms, "operations" | "bytes")``."""
     t_ops = flops / PEAK_F32_FLOPS * 1e3
@@ -172,10 +211,11 @@ def device_profile(tag, what, fn, card):
     rows."""
     import torch
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+
+    from nf_tpu_torch.utils import profiling
 
     for attempt in range(3):
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with profiling.device_profile() as prof:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             fn()
@@ -187,19 +227,26 @@ def device_profile(tag, what, fn, card):
         # device operations than the trace holds.  An annotated range's span
         # on the device (the optimizer step's) is left out: it repeats the
         # kernels inside it
-        rows = {}
+        rows, recorded, launched = {}, set(), set()
         for e in prof.profiler.kineto_results.events():
             if e.device_type() == DeviceType.CUDA and not e.is_user_annotation():
                 us, n = rows.get(e.name(), (0.0, 0))
                 rows[e.name()] = (us + e.duration_ns() / 1e3, n + 1)
+                recorded.add(e.correlation_id())
+            elif e.device_type() == DeviceType.CPU and e.name().startswith(
+                    ("cudaLaunch", "cudaGraphLaunch", "cudaMemcpy", "cudaMemset")):
+                launched.add(e.correlation_id())
+        # the launches (kernels, graphs, copies, memsets) whose device
+        # record the trace lacks; a launch made while a CUDA graph is
+        # captured runs nothing and has none
+        lost = len(launched - recorded)
         if rows:
             break
-        # a trace of a call of a few small kernels (one ToyPDF call) has come
-        # back with no device record at all, from key_averages() and from
-        # the raw events alike, where other runs' traces of the same call
-        # held its kernels.  Where a CUDA graph was captured before, CUPTI
-        # torn down and set up again between traces was the cause: the
-        # chunk's capture now keeps it up (training/chunk.py _keep_cupti)
+        # kineto drops a device record whose timestamp, moved onto the
+        # host's clock, falls before the trace's window: one ToyPDF call
+        # late in this script came back with none.  The port's
+        # device_profile records after a warm-up step and a lead, which
+        # keep the records in (utils/profiling.py, PERF.md section 6)
         print(f"{tag} {what}: the tracer returned no device record (try {attempt + 1}); "
               "profiling the call again")
     total = sum(us for us, _ in rows.values())
@@ -207,7 +254,8 @@ def device_profile(tag, what, fn, card):
     check(total > 0, f"{what} profile shows device time")
     print(f"{tag} {what} under the profiler: device {total / 1e3:.3f} ms of "
           f"{wall * 1e3:.3f} ms wall (busy {total / 1e6 / wall:.1%}), {launches} device "
-          f"operations (kernels and copies) {card}")
+          f"operations (kernels and copies); {lost} of {len(launched)} launches without a "
+          f"device record (captures included) {card}")
     for name, (us, n) in sorted(rows.items(), key=lambda r: -r[1][0])[:6]:
         print(f"{tag}   {us / 1e3:.3f} ms ({us / total:.1%}) x{n} {name[:90]}")
     return total / 1e3, launches
@@ -2037,6 +2085,126 @@ def phase17(dev, card, gen, hold_train):
     return launches, errors, update
 
 
+# ---- phase 18: the per-op cost calibration (nf_tpu_torch/tools/calibrate_ops.py,
+# the counterpart of tools/calibrate_vpu_ops.py): the op-chain kernel against
+# its plain version for the ten ops, then the calibration at the Pallas
+# tool's sizes on the card
+P18_CHECK = (64, 40)                    # the checks' K and grid (two partial rows)
+P18_K = 320                             # the timed launch's K, at the calibration's grid
+# the flow kernels' rows of PERF.md section 6: plan, n_flow, create_model's
+# arguments, (kernel, samples) per row
+P18_MODEL_ROWS = (
+    ("camel2d", 2, (2, 4, [3] * 3), {},
+     (("sampler", 1 << 21), ("fwd", 1 << 20), ("bwd", 1 << 20))),
+    ("flagship10d_rank4", 10, (8, 8, [16, 16]), {"final_rank": 4},
+     (("sampler", 1 << 21), ("fwd", 1 << 18), ("bwd", 1 << 18))),
+    ("wide128", 2, (2, 4, [128, 128]), {}, (("bwd", 1 << 18),)),
+    ("2to4 n_flow 10", 10, (4, 32, [32] * 2), {"identity_init": True},
+     (("sampler", 1 << 21), ("fwd", 1 << 18), ("bwd", 1 << 18))),
+    ("zz n_flow 11", 11, (4, 16, [32] * 2), {"identity_init": True, "final_rank": 4},
+     (("sampler", 1 << 20), ("fwd", 1 << 18), ("bwd", 1 << 18))),
+)
+
+
+def phase18(dev, card):
+    """The op-chain kernel (``ops/op_chain``) against ``chain_ref`` for the
+    ten ops, at the checks' size and at the calibration's two, each within the
+    tests' 1e-6 relative, two launches bit for bit, then
+    ``calibrate_ops.calibrate`` at grid 1024 and K 64 / 320 and the SASS
+    checks.  Returns the kernels-line numbers: launches of the calibration,
+    the largest |kernel - plain|, the fma chain's time at K 320 and grid
+    1024, its plain version's, its bound."""
+    import torch
+
+    from nf_tpu_torch.ops import op_chain
+    from nf_tpu_torch.tools import calibrate_ops
+
+    t_phase = time.perf_counter()
+    worst = 0.0
+    op_chain.LAUNCHES = 0
+    # the checks' size, then both instantiations the calibration times at its grid
+    sizes = (P18_CHECK, *((k, calibrate_ops.GRID) for k in (calibrate_ops.K1, calibrate_ops.K2)))
+    for k, grid in sizes:
+        for op in op_chain.OPS:
+            a = op_chain.chain(op, k, grid, 7, dev)
+            b = op_chain.chain(op, k, grid, 7, dev)
+            ref = op_chain.chain_ref(op, k, grid, 7, dev)
+            torch.cuda.synchronize()
+            err = float((a - ref).abs().max())
+            rel = float(((a - ref).abs() / ref.abs()).max())
+            same = int((a.view(torch.int32) == ref.view(torch.int32)).sum())
+            repeat = torch.equal(a.view(torch.int32), b.view(torch.int32))
+            print(f"phase18 check 1 {op} K {k} grid {grid}: max|kernel - plain| {err:.3e} "
+                  f"(rel {rel:.3e}), {same} of {a.numel()} bit for bit; second launch bit for "
+                  f"bit: {repeat}")
+            check(a.shape == (op_chain.SUB, op_chain.LANE) and bool(torch.isfinite(a).all()),
+                  f"op_chain {op} output")
+            check(torch.allclose(a, ref, rtol=1e-6, atol=0), f"op_chain {op} K {k} vs plain")
+            check(repeat, f"op_chain {op} K {k}: two launches give the same bits")
+            worst = max(worst, err)
+    expected = 2 * len(sizes) * len(op_chain.OPS)
+    check(op_chain.LAUNCHES == expected, f"op_chain counted {op_chain.LAUNCHES} launches of "
+          f"{expected}")
+
+    # the main path: the calibration, its launches counted from 0
+    op_chain.LAUNCHES = 0
+    t0 = time.perf_counter()
+    result = calibrate_ops.calibrate(dev, log=lambda line: print(f"phase18 {line}"))
+    launches = op_chain.LAUNCHES
+    cal_s = time.perf_counter() - t0
+    per_op = (calibrate_ops.REPS + 1) * 2 * sum(calibrate_ops.LAUNCHES)
+    check(launches == per_op * len(op_chain.OPS),
+          f"the calibration launched the op-chain kernel {launches} times")
+    print(f"phase18 calibration, grid {calibrate_ops.GRID} ({result['elements_per_launch']} "
+          f"elements), K {calibrate_ops.K1} and {calibrate_ops.K2}, {calibrate_ops.LAUNCHES} "
+          f"launches between events, median of {calibrate_ops.REPS}: {cal_s:.1f} s, {launches} "
+          f"launches {card}")
+    for line in calibrate_ops.table(result).splitlines():
+        print(f"phase18 {line}")
+    print(f"phase18 calibration JSON {json.dumps(result)}")
+    for op, sec in result["sec_per_op_per_element"].items():
+        check(math.isfinite(sec) and sec > 0, f"calibration {op}: {sec} s per op")
+    sass = result["sass_per_step"]
+    check(set(sass) == set(op_chain.OPS), "SASS of the ten chains read")
+    for op, code in (("fma", "FFMA"), ("mul", "FMUL"), ("add", "FADD")):
+        check(sass[op]["by_opcode"] == {code: 1.0}, f"the {op} chain is one {code} a step: "
+              f"{sass[op]['by_opcode']}")
+    for op, s in sass.items():
+        check(s["instructions"] >= 1 and all(n == int(n) for n in s["by_opcode"].values()),
+              f"the {op} chain is unrolled, every step kept: {s['by_opcode']}")
+
+    # the op model of the flow kernels' rows in PERF.md, at these costs
+    from nf_tpu_torch import PWQuadManager
+    from nf_tpu_torch.ops import pwquad_train as pt
+
+    sec = result["sec_per_op_per_element"]
+    for plan, n_flow, args, kw, rows in P18_MODEL_ROWS:
+        NF = PWQuadManager(n_flow=n_flow, seed=0, device=dev)
+        NF.create_model(*args, **kw)
+        for kernel, n in rows:
+            mix = op_mix(pt, NF._flow, kernel)
+            b_ms, b_by = bound_ms(*kernel_work(pt, NF._flow, kernel, n))
+            model = op_model_ms(mix, n, sec)
+            print(f"phase18 op model {plan} {kernel} n={n}: per sample {mix['flops']} FLOP of "
+                  f"which {mix['expf']} expf and {mix['div']} divisions; at the measured costs "
+                  f"{model:.5f} ms against the bound {b_ms:.5f} ms by {b_by} "
+                  f"({model / b_ms:.2f}x) {card}")
+
+    # the kernels line: one launch of the fma chain at K 320, grid 1024
+    out = torch.empty((op_chain.SUB, op_chain.LANE), device=dev)
+    grid = calibrate_ops.GRID
+    scratch = torch.empty(-(-grid // op_chain.CHUNK) * op_chain.TILE, device=dev)
+    ms = time_ms(lambda: op_chain.chain("fma", P18_K, grid, 1, dev, out=out, scratch=scratch))
+    plain_ms = time_ms(lambda: op_chain.chain_ref("fma", P18_K, grid, 1, dev))
+    flops = 2 * P18_K * op_chain.TILE * grid
+    b_ms, b_by = bound_ms(flops, 4 + 4 * op_chain.TILE)
+    print(f"phase18 fma chain K {P18_K} grid {grid}: {ms:.4f} ms (plain {plain_ms:.3f} ms), "
+          f"bound {b_ms:.5f} ms by {b_by}, {b_ms / ms:.2%} of the bound; phase 18 "
+          f"{time.perf_counter() - t_phase:.1f} s {card}")
+    return {"launches": launches, "max_abs_err": worst, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
 def main():
     import numpy as np
     import torch
@@ -2743,6 +2911,9 @@ def main():
     # ---- phase 17: the chunked epoch cadence
     chunk_launches, chunk_err, update = phase17(dev, card, gen, hold_train)
 
+    # ---- phase 18: the per-op cost calibration on the op-chain kernel
+    chain = phase18(dev, card)
+
     camel_t = timings["camel2d_trained"]
     camel_tt = train_t["camel2d_trained"]
     src = "nf_tpu_torch/ops/csrc/pwquad_train.cu"
@@ -2797,6 +2968,18 @@ def main():
         "bound_ms": update["bound_ms"],
         "bound_by": "bytes",
         "library_ms": update["library_ms"],
+    }, {
+        "name": "op_chain",
+        "route": "cuda",
+        "source": "nf_tpu_torch/ops/csrc/op_chain.cu",
+        "replaces": "tools/calibrate_vpu_ops.py:62",
+        "launches": chain["launches"],
+        "max_abs_err": chain["max_abs_err"],
+        "ms": chain["ms"],
+        "plain_ms": chain["plain_ms"],
+        "bound_ms": chain["bound_ms"],
+        "bound_by": chain["bound_by"],
+        "library_ms": None,
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,16 +1,19 @@
 """Build the port's CUDA kernels with nvcc and load them with ctypes.
 
 At first use, :func:`library` compiles every ``csrc/*.cu`` (the sampler and
-the training kernels, which include ``csrc/flow_plan.cuh``, and the
-optimizer update) into one shared library with a plain C interface,
+the training kernels, which include ``csrc/flow_plan.cuh``, the optimizer
+update and the op-chain kernel of the per-op cost calibration) with one
+nvcc process per source, all started together,
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \\
-         -Xcompiler -fPIC -o build/<hash>/libnf_tpu_torch_kernels.so csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
+         -Xcompiler -fPIC -c csrc/<name>.cu -o build/<hash>/<name>.o
 
-where ``<hash>`` is a digest of the sources, the header and the flags, so an
-edited source builds anew.  The library is loaded with ``ctypes`` and every entry point's
-``argtypes`` / ``restype`` are declared here.  A missing nvcc or a failed
-build raises with nvcc's output.  Nothing is downloaded.
+and links the objects into one shared library with a plain C interface,
+``build/<hash>/libnf_tpu_torch_kernels.so``, where ``<hash>`` is a digest
+of the sources, the header and the flags, so an edited source builds anew.
+The library is loaded with ``ctypes`` and every entry point's ``argtypes``
+/ ``restype`` are declared here.  A missing nvcc or a failed build raises
+with nvcc's output.  Nothing is downloaded.
 """
 
 from __future__ import annotations
@@ -26,8 +29,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD = Path(__file__).resolve().parent / "build"
 LIB_NAME = "libnf_tpu_torch_kernels.so"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+GENCODE = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = [*GENCODE, "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 _LIB = None
 
@@ -44,17 +47,32 @@ def nvcc_path() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
+def _run(cmds):
+    """Run nvcc commands side by side; raise with the output of the first
+    that fails."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True)) for cmd in cmds]
+    failed = None
+    for cmd, proc in procs:
+        output, _ = proc.communicate()
+        if proc.returncode != 0 and failed is None:
+            failed = f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{output}"
+    if failed:
+        raise RuntimeError(failed)
+
+
 def _compile(sources, out: Path):
     out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", tmp, *map(str, sources)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    work = Path(tempfile.mkdtemp(dir=out.parent))
+    try:
+        objects = [work / (Path(src).stem + ".o") for src in sources]
+        _run([[nvcc_path(), *NVCC_FLAGS, "-c", str(src), "-o", str(obj)]
+              for src, obj in zip(sources, objects)])
+        tmp = work / LIB_NAME
+        _run([[nvcc_path(), *GENCODE, "-shared", "-o", str(tmp), *map(str, objects)]])
+        os.replace(tmp, out)  # atomic: a concurrent loader never sees half a file
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
 
 
 def library() -> ctypes.CDLL:
@@ -83,6 +101,8 @@ def library() -> ctypes.CDLL:
     d = ctypes.c_double
     lib.nf_optim_step.argtypes = [i, i, i, p, p, p, p, p, p, p, p, i64, d, d, d, d, d, i, p]
     lib.nf_optim_step.restype = i
+    lib.nf_op_chain.argtypes = [i, i, i, i, i, p, p, p]
+    lib.nf_op_chain.restype = i
     for limits in (lib.nf_pwquad_sampler_limits, lib.nf_pwquad_train_limits):
         limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
         limits.restype = i

@@ -5,6 +5,11 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
 
     python3 nf_tpu_torch/tools/kernel_timing.py ptxas [--tree DIR]
         nvcc -Xptxas -v on every csrc/*.cu of the tree: registers, stack, spills per kernel
+    python3 nf_tpu_torch/tools/kernel_timing.py build [--tree DIR]
+        seconds to build the tree's kernel library: ops/_build's build (one
+        nvcc per source, all started together, then a link) against one nvcc
+        over every source, in the order one, each, each, one, each into a
+        fresh directory; one JSON line
     python3 nf_tpu_torch/tools/kernel_timing.py time [--tree DIR] [--trainers]
         kernel and trainer timings of the nf_tpu_torch found in DIR (default:
         this checkout) on camel-2D, the 10-D flagship and create_model(2, 4,
@@ -139,6 +144,35 @@ def ptxas(tree):
                 print(line.strip())
         if proc.returncode:
             return 1
+    return 0
+
+
+def build_time(tree):
+    sys.path.insert(0, tree)
+    import shutil
+
+    from nf_tpu_torch.ops import _build
+
+    sources = sorted(_build.CSRC.glob("*.cu"))
+    root = _build.BUILD / "build_time"
+
+    def one_nvcc(out):
+        out.parent.mkdir(parents=True, exist_ok=True)
+        _build._run([[_build.nvcc_path(), *_build.NVCC_FLAGS, "-shared", "-o", str(out),
+                      *map(str, sources)]])
+
+    builds = {"one nvcc": one_nvcc, "one nvcc a source": lambda out: _build._compile(sources, out)}
+    seconds = {kind: [] for kind in builds}
+    try:
+        for i, kind in enumerate(("one nvcc", "one nvcc a source", "one nvcc a source",
+                                  "one nvcc")):
+            t0 = time.perf_counter()
+            builds[kind](root / str(i) / _build.LIB_NAME)
+            seconds[kind].append(round(time.perf_counter() - t0, 2))
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(json.dumps({"build_s": seconds, "sources": [src.name for src in sources],
+                      "cpus": os.cpu_count(), "card": card()}))
     return 0
 
 
@@ -339,7 +373,7 @@ def sweep(tree):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("mode", choices=("ptxas", "time", "pair", "sweep"))
+    parser.add_argument("mode", choices=("ptxas", "build", "time", "pair", "sweep"))
     parser.add_argument("trees", nargs="*")
     parser.add_argument("--tree", default=ROOT)
     parser.add_argument("--trainers", action="store_true",
@@ -347,6 +381,8 @@ def main():
     args = parser.parse_args()
     if args.mode == "ptxas":
         return ptxas(args.tree)
+    if args.mode == "build":
+        return build_time(args.tree)
     import torch
 
     if not torch.cuda.is_available():

@@ -16,21 +16,69 @@ from collections.abc import Mapping
 import torch
 
 
+# The warm-up step of a profile on the card: tiny kernels, each waited for,
+# spaced in time, whose device records the profile discards; then the lead,
+# idle time at the start of the recording before the first traced launch.
+WARMUP_LAUNCHES = 32
+WARMUP_GAP_S = 1e-3
+LEAD_S = 0.05
+
+
+def _warm_up():
+    x = torch.zeros(1, device="cuda")
+    for _ in range(WARMUP_LAUNCHES):
+        x.add_(1)
+        torch.cuda.synchronize()
+        time.sleep(WARMUP_GAP_S)
+
+
+@contextlib.contextmanager
+def device_profile(**kwargs):
+    """A ``torch.profiler.profile`` of the host and, with a card, the device,
+    that records what runs inside the ``with`` block.  On the card the
+    device's timestamps, moved onto the host's clock, can read earlier than
+    the launches that made them, and kineto drops a record that falls
+    before the trace's window as out of range (an NVIDIA H100 with torch
+    2.11 and CUDA 12.8; PERF.md section 6).  Right after CUPTI's
+    activities are enabled the shift grows with the process's age, so a
+    trace that records at once loses its first launches' records and a
+    trace of a few kernels late in a long run comes back empty; later it is
+    small.  So the recording starts after a warm-up step of tiny kernels
+    (kineto's schedule: warm-up 1, active 1), and the block starts
+    ``LEAD_S`` after the recording.  ``kwargs`` go to ``profile``.  Yields
+    it; its results are there once the block ends.
+
+    >>> with profiling.device_profile() as prof:
+    ...     manager.integrate(f, 10, 1 << 20)
+    >>> prof.key_averages()
+    """
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    if not torch.cuda.is_available():
+        with profile(activities=[ProfilerActivity.CPU], **kwargs) as prof:
+            yield prof
+        return
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1), **kwargs) as prof:
+        _warm_up()
+        prof.step()
+        torch.cuda.synchronize()
+        time.sleep(LEAD_S)
+        yield prof
+
+
 @contextlib.contextmanager
 def trace(logdir: str):
     """Capture a host and (with a card) device trace into ``logdir``, one
-    Chrome-trace JSON file, viewable in TensorBoard / Perfetto.  Yields the
-    ``torch.profiler.profile`` object.
+    Chrome-trace JSON file, viewable in TensorBoard / Perfetto: a
+    :func:`device_profile`.  Yields the ``torch.profiler.profile`` object.
 
     >>> with profiling.trace("runs/trace"):
     ...     manager.integrate(f, 10, 1 << 20)
     """
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
+    from torch.profiler import tensorboard_trace_handler
 
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities, on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
+    with device_profile(on_trace_ready=tensorboard_trace_handler(logdir)) as prof:
         yield prof
 
 
