@@ -24,6 +24,7 @@ from nf_tpu_torch.bijectors import coupling
 from nf_tpu_torch.bijectors.permutations import inverse_permutation
 from nf_tpu_torch.flows.model import permutation_source
 from nf_tpu_torch.ops.pwquad_sampler import fold_eval_params, model_device
+from nf_tpu_torch.utils import profiling
 
 
 def permutation_index(flow, device, inverse=False):
@@ -90,12 +91,14 @@ def apply_folded_inverse(flow, folded, perms, y):
 
 
 def _fold(flow, model, dtype):
-    """:func:`fold_eval_params` of ``model`` as ``dtype`` tensors on its device."""
+    """:func:`fold_eval_params` of ``model`` as ``dtype`` tensors on its
+    device (the span ``nf.fold``)."""
     device = model_device(model)
     np_dtype = np.float64 if dtype == torch.float64 else np.float32
-    return [[(torch.as_tensor(wm, device=device), torch.as_tensor(bv, device=device), relu)
-             for wm, bv, relu in layers]
-            for layers in fold_eval_params(flow, model, dtype=np_dtype)]
+    with profiling.span("nf.fold"):
+        return [[(torch.as_tensor(wm, device=device), torch.as_tensor(bv, device=device), relu)
+                 for wm, bv, relu in layers]
+                for layers in fold_eval_params(flow, model, dtype=np_dtype)]
 
 
 def make_folded_forward(flow, model, dtype=torch.float32):

@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from nf_tpu_torch.ops.pwquad_sampler import model_device
+from nf_tpu_torch.utils import profiling
 
 
 def supported_by_kernel(flow) -> bool:
@@ -37,9 +38,11 @@ def default_method(flow, device, train=None) -> str:
 
 
 def seed_from(generator: torch.Generator) -> int:
-    """A 62-bit kernel seed drawn from ``generator``."""
-    return int(torch.randint(0, 1 << 62, (1,), generator=generator,
-                             device=generator.device))
+    """A 62-bit kernel seed drawn from ``generator``: one host read."""
+    seed = torch.randint(0, 1 << 62, (1,), generator=generator, device=generator.device)
+    with profiling.span("nf.read.seed"):
+        profiling.HOST_READS += 1
+        return int(seed)
 
 
 def make_sampler(flow, model, n, method, train=False, dtype=torch.float32):

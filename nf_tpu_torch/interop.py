@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from nf_tpu_torch.flows.model import Flow, FlowModel
+from nf_tpu_torch.utils import profiling
 
 
 def _copy_into(tensor, array):
@@ -56,8 +57,10 @@ def from_numpy(flow: Flow, params, state, dtype=torch.float64,
 
 
 def to_numpy(model: FlowModel):
-    """``(params, state)`` of ``model`` in nf_tpu's layout, as numpy arrays."""
+    """``(params, state)`` of ``model`` in nf_tpu's layout, as numpy arrays:
+    one host read a tensor (``profiling.HOST_READS``)."""
     def arr(t):
+        profiling.HOST_READS += 1
         return t.detach().cpu().numpy().copy()
 
     def bn_p(bn):

@@ -35,8 +35,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from nf_tpu_torch import interop
 from nf_tpu_torch.flows.model import permutation_source
-from nf_tpu_torch.interop import to_numpy
+from nf_tpu_torch.utils import profiling
 
 # Launches of the CUDA kernel since import (or since a caller reset it).
 LAUNCHES = 0
@@ -112,7 +113,8 @@ def _fold_conditioner(params, state, eps=1e-5, dtype=np.float32):
 def fold_eval_params(flow, model, dtype=np.float32):
     """Fold every cell of ``model``: one list of ``(W, b, relu)`` per cell,
     ``W`` in ``[fan_in, fan_out]`` layout."""
-    params, state = to_numpy(model)
+    with profiling.span("nf.read.fold"):
+        params, state = interop.to_numpy(model)
     return [_fold_conditioner(p, s, dtype=dtype) for p, s in zip(params, state)]
 
 
@@ -414,7 +416,8 @@ def build_sampler(flow, model, take_latents: bool = False,
     latents with Philox (:func:`philox_uniform`); disjoint ``offset`` ranges
     give disjoint streams for one seed.
 
-    The weights are folded and encoded once, here.  On a CUDA device every
+    The launch is planned and the weights folded, encoded and uploaded
+    once, here (the span ``nf.fold``).  On a CUDA device every
     call launches the kernel, with ``config = (block, w_smem)`` (default
     :func:`sampler_config`); a plan no launch fits raises ``ValueError``
     here.  On the CPU it runs the plain version.
@@ -427,13 +430,15 @@ def build_sampler(flow, model, take_latents: bool = False,
     n_flow = flow.n_flow
     device = model_device(model)
     if device.type == "cuda":
-        plan = SamplerPlan(flow)
-        config = config or plan.config
-        if config[0] not in SAMPLER_BLOCKS + SMALL_BLOCKS:
-            raise ValueError(f"sampler block {config[0]} not in {SAMPLER_BLOCKS + SMALL_BLOCKS}")
-        smem = sampler_smem_bytes(plan, *config)
-        desc, weights = encode_plan(flow, fold_eval_params(flow, model))
-        ops = tuple(torch.as_tensor(a, device=device) for a in (desc, plan.table, weights))
+        with profiling.span("nf.fold"):
+            plan = SamplerPlan(flow)
+            config = config or plan.config
+            if config[0] not in SAMPLER_BLOCKS + SMALL_BLOCKS:
+                raise ValueError(f"sampler block {config[0]} not in "
+                                 f"{SAMPLER_BLOCKS + SMALL_BLOCKS}")
+            smem = sampler_smem_bytes(plan, *config)
+            desc, weights = encode_plan(flow, fold_eval_params(flow, model))
+            ops = tuple(torch.as_tensor(a, device=device) for a in (desc, plan.table, weights))
     elif device.type == "cpu":
         plain = make_folded_forward(flow, model, torch.float32)
     else:

@@ -33,6 +33,7 @@ from nf_tpu_torch.flows import sampling as fsampling
 from nf_tpu_torch.ops.pwquad_sampler import model_device
 from nf_tpu_torch.parallel.dp import all_gather_rows, all_reduce_sum
 from nf_tpu_torch.parallel.mesh import group_of, local_rows, rank_and_size
+from nf_tpu_torch.utils import profiling
 
 _GOLDEN = 0x9E3779B9
 _MASK = 0xFFFFFFFF
@@ -139,7 +140,8 @@ def combine_iterations(means, variances, n_total, combine="iw"):
     """Combine per-iteration ``(mean, variance)`` into ``(sig, sig_err)``
     floats: ``"iw"`` is the reference's inverse-variance weighting (biased
     low on heavy tails), ``"mean"`` the pooled mean with its standard
-    error over ``n_total`` samples."""
+    error over ``n_total`` samples; the two are read to the host at once
+    (the span ``nf.read.result``)."""
     means = torch.as_tensor(means)
     variances = torch.as_tensor(variances)
     if combine == "mean":
@@ -149,7 +151,10 @@ def combine_iterations(means, variances, n_total, combine="iw"):
         err = torch.sqrt(1.0 / torch.sum(1.0 / variances)) / math.sqrt(n_total)
     else:
         raise ValueError(f"unknown combine {combine!r}; expected 'iw' or 'mean'")
-    sig, err = torch.stack([sig, err]).tolist()
+    result = torch.stack([sig, err])
+    with profiling.span("nf.read.result"):
+        profiling.HOST_READS += 1
+        sig, err = result.tolist()
     return sig, err
 
 

@@ -30,10 +30,18 @@ so a replay draws what an eager epoch draws at the same offset.  The
 kernels' launch counters (``pwquad_train.FWD_LAUNCHES`` / ``BWD_LAUNCHES``,
 ``optim_step.LAUNCHES``) are Python counters, which a replay does not move:
 the launches a capture recorded are added once per replay, and the capture
-itself counts none.  A failed capture or replay raises, naming the call that
-could not be captured; nothing falls back to the eager chunk.  A capture
+itself counts none.  (``profiling.HOST_READS`` is not among them: a replay
+reads nothing to the host.)  A failed capture or replay raises, naming the
+call that could not be captured; nothing falls back to the eager chunk.  A capture
 keeps CUPTI set up between profiler traces from then on (:func:`_keep_cupti`):
 torn down and set up again after a capture, it drops device records.
+
+Spans (:mod:`nf_tpu_torch.utils.profiling`): ``nf.chunk.run`` is one
+chunk; inside it, for the epoch and the refresh alike (``<name>``),
+``nf.chunk.eager.<name>`` an eager run (with graphs, the graph's first),
+``nf.chunk.capture.<name>`` the capture and instantiation,
+``nf.chunk.first_replay.<name>`` the first replay after it (where the
+graph is uploaded) and ``nf.chunk.replay.<name>`` every later one.
 
 The optimizer's step inside a graph is the manager's ``stepper``, a
 :class:`~nf_tpu_torch.training.optimizers.DeviceStep`: the update kernel,
@@ -65,6 +73,7 @@ import traceback
 import torch
 
 from nf_tpu_torch.ops import optim_step, pwquad_train
+from nf_tpu_torch.utils import profiling
 
 # the kernels' launch counters, which a graph replay adds to
 COUNTERS = ((pwquad_train, "FWD_LAUNCHES"), (pwquad_train, "BWD_LAUNCHES"),
@@ -72,6 +81,10 @@ COUNTERS = ((pwquad_train, "FWD_LAUNCHES"), (pwquad_train, "BWD_LAUNCHES"),
 # one epoch's row: the five statistics of epoch_step, then the preburn flag
 # at the epoch's start and the kill counter after it
 ROW = 7
+# the spans of a graph's life, by phase and by the name of what it runs
+SPANS = {(phase, name): f"nf.chunk.{phase}.{name}"
+         for phase in ("eager", "capture", "first_replay", "replay")
+         for name in ("epoch", "refresh")}
 
 
 def _counts():
@@ -178,7 +191,7 @@ class EpochChunk:
         self._saved = None
         if graphs:
             self.stream = torch.cuda.Stream(device)
-            self._graph, self._captured = {}, {}
+            self._graph, self._captured, self._replayed = {}, {}, set()
 
     # -- one epoch, one refresh (what the graphs hold) ----------------------
 
@@ -223,10 +236,14 @@ class EpochChunk:
         """``fn`` eagerly, or its graph: the first call runs it and captures it."""
         graph = self._graph.get(name) if self.graphs else None
         if graph is not None:
-            graph.replay()
+            phase = "replay" if name in self._replayed else "first_replay"
+            with profiling.span(SPANS[phase, name]):
+                graph.replay()
+            self._replayed.add(name)
             _add_counts(self._captured[name])
             return
-        fn()
+        with profiling.span(SPANS["eager", name]):
+            fn()
         if not self.graphs:
             return
         _keep_cupti()
@@ -234,7 +251,8 @@ class EpochChunk:
         graph.register_generator_state(self.generator)
         before = _counts()
         try:
-            with torch.cuda.graph(graph, stream=self.stream):
+            with profiling.span(SPANS["capture", name]), \
+                    torch.cuda.graph(graph, stream=self.stream):
                 fn()
             self._captured[name] = [b - a for a, b in zip(before, _counts())]
         except RuntimeError as e:
@@ -250,6 +268,7 @@ class EpochChunk:
 
     # -- chunks ---------------------------------------------------------------
 
+    @profiling.spanned("nf.chunk.run")
     def run(self, i0, k, init):
         """Epochs ``i0 .. i0 + k - 1``: returns their rows ``[k, ROW]`` on the
         device, not read.  ``init = (preburn, counter, last_loss, best

@@ -69,6 +69,18 @@ of the single-device run.  The stale trainer refreshes its statistics from
 the forward kernel's all-reduced batch sums on every world size (nf_tpu
 refreshes from a train-mode forward under a mesh).  Only the first rank
 writes files.
+
+Spans (:mod:`nf_tpu_torch.utils.profiling`): ``nf.create_model`` builds
+the model; ``nf.sample`` and
+``nf.integrate`` are the calls (with ``nf.fold``, ``nf.read.seed``,
+``nf.integrate.iterations`` and ``nf.read.result`` inside); ``nf.train`` is
+the trainer's, with ``nf.train.first_estimate`` (phase A),
+``nf.train.setup`` (the optimizer, the update's tables, the epoch runner
+and the chunk runner), per epoch ``nf.train.epoch`` or per chunk
+``nf.chunk.run`` (:mod:`~nf_tpu_torch.training.chunk`), the rows' read
+``nf.read.epoch`` / ``nf.read.chunk``, the host state machine
+``nf.train.host`` (a stop inside a chunk's ``nf.chunk.rerun`` in it) and
+the tail integration ``nf.train.tail``.
 """
 
 from __future__ import annotations
@@ -90,7 +102,7 @@ from nf_tpu_torch.parallel.dp import (all_reduce_max, all_reduce_sum, average_gr
 from nf_tpu_torch.parallel.mesh import group_of, rank_and_size, shard_rows
 from nf_tpu_torch.training import chunk as tchunk
 from nf_tpu_torch.training.optimizers import device_step, set_capturable
-from nf_tpu_torch.utils import checkpoint
+from nf_tpu_torch.utils import checkpoint, profiling
 
 
 def _pick(pre, a, b):
@@ -250,6 +262,7 @@ class BasicManager:
                 "None/'auto', 'fused', 'folded', 'reference'/'stateful'")
         return method
 
+    @profiling.spanned("nf.sample")
     def sample(self, n, seed=None, model=None, train=None, method=None,
                mesh=None):
         """Draw ``n`` latent points and map them: returns ``(x, jac)``.
@@ -318,6 +331,7 @@ class BasicManager:
             refresh()
         return stats
 
+    @profiling.spanned("nf.train")
     def _train_variance_forward_seq(self, f, optimizer_object, log=True,
                                     logdir=None, batch_size=10000, epochs=10,
                                     epoch_start=0, pretty_progressbar=True,
@@ -407,27 +421,31 @@ class BasicManager:
         graphs = chunked and (on_card if _graphs is None else _graphs)
         if graphs and not on_card:
             raise ValueError("the chunk replays CUDA graphs on a CUDA device without a mesh only")
-        optimizer = optimizer_object(model.parameters())
-        if rs is not None:
-            optimizer.load_state_dict(rs["opt"])
-        # a chunk on the card steps through the update kernel (device_step
-        # takes parameters on a CUDA device only); an optimizer it does not
-        # cover is made capturable
-        stepper = device_step(optimizer, epochs) if chunked and group is None else None
-        set_capturable(optimizer, chunked and on_card and stepper is None)
-        epoch_cfg = {"f": f, "maxf": maxf, "loss_mode": loss_mode, "pathwise": pathwise,
-                     "plan": pwquad_train.TrainPlan(self._flow) if bn_stats == "stale" else None,
-                     # the refresh's bounded batch (nf_tpu manager.py:464)
-                     "stats_batch": min(mini_batch_size, 1 << 16), "group": group}
-        train, refresh = self._epoch_runner(model, stepper or optimizer, self._uniform,
-                                            **epoch_cfg)
-        by_ess = select_best_by == "ess"
-        chunk_cfg = None
-        if chunked:
-            chunk_cfg = {"n_minibatches": n_minibatches, "mini_batch_size": mini_batch_size,
-                         "stats_every": stats_every, "preburn_time": preburn_time,
-                         "kill_counter": kill_counter, "by_ess": by_ess, "graphs": graphs}
-            k0 = max(min(check_time if auto else int(epochs_per_sync), epochs), 1)
+        with profiling.span("nf.train.setup"):
+            optimizer = optimizer_object(model.parameters())
+            if rs is not None:
+                optimizer.load_state_dict(rs["opt"])
+            # a chunk on the card steps through the update kernel (device_step
+            # takes parameters on a CUDA device only); an optimizer it does not
+            # cover is made capturable
+            stepper = device_step(optimizer, epochs) if chunked and group is None else None
+            set_capturable(optimizer, chunked and on_card and stepper is None)
+            epoch_cfg = {"f": f, "maxf": maxf, "loss_mode": loss_mode, "pathwise": pathwise,
+                         "plan": pwquad_train.TrainPlan(self._flow) if bn_stats == "stale"
+                         else None,
+                         # the refresh's bounded batch (nf_tpu manager.py:464)
+                         "stats_batch": min(mini_batch_size, 1 << 16), "group": group}
+            train, refresh = self._epoch_runner(model, stepper or optimizer, self._uniform,
+                                                **epoch_cfg)
+            by_ess = select_best_by == "ess"
+            chunk_cfg = None
+            if chunked:
+                chunk_cfg = {"n_minibatches": n_minibatches, "mini_batch_size": mini_batch_size,
+                             "stats_every": stats_every, "preburn_time": preburn_time,
+                             "kill_counter": kill_counter, "by_ess": by_ess, "graphs": graphs}
+                k0 = max(min(check_time if auto else int(epochs_per_sync), epochs), 1)
+                runner = tchunk.EpochChunk(model, optimizer, train, refresh, self._uniform,
+                                           self._gen, stepper=stepper, **chunk_cfg)
 
         # ---- host-side epoch loop with the early-stop state machine
         # (reference manager.py:212-327)
@@ -511,14 +529,16 @@ class BasicManager:
         i = epoch_start - 1
         if not chunked:
             for i in range(epoch_start, epochs_end):
-                ws = [self._uniform((mini_batch_size, n_flow)) for _ in range(n_minibatches)]
-                stats = self._epoch(train, refresh, stats_every, i, sm["preburner"], ws)
-                if process_epoch(i, *stats.tolist(),  # the epoch's sync
-                                 lambda: copy.deepcopy(model)):
-                    break
+                with profiling.span("nf.train.epoch"):
+                    ws = [self._uniform((mini_batch_size, n_flow)) for _ in range(n_minibatches)]
+                    stats = self._epoch(train, refresh, stats_every, i, sm["preburner"], ws)
+                with profiling.span("nf.read.epoch"):   # the epoch's sync
+                    profiling.HOST_READS += 1
+                    stats = stats.tolist()
+                with profiling.span("nf.train.host"):
+                    if process_epoch(i, *stats, lambda: copy.deepcopy(model)):
+                        break
         else:
-            runner = tchunk.EpochChunk(model, optimizer, train, refresh, self._uniform,
-                                       self._gen, stepper=stepper, **chunk_cfg)
             next_i, stop = epoch_start, False
             while next_i < epochs_end and not stop:
                 k = min(k0, epochs_end - next_i)
@@ -526,32 +546,40 @@ class BasicManager:
                         self.best_ess if by_ess else self.best_loss, self.best_loss,
                         self.best_model)
                 runner.save()
-                rows = runner.run(next_i, k, init).tolist()   # the chunk's one sync
-                snapshots = []
-                for j, row in enumerate(rows):
-                    i = next_i + j
-                    # the device ran the host's machine: any drift is a bug
-                    # (nf_tpu manager.py:806-828)
-                    if bool(row[5]) != sm["preburner"]:
-                        raise RuntimeError(f"device/host preburn state diverged at epoch {i}")
-                    stop = process_epoch(i, *row[:5], lambda: snapshots.append(i))
-                    if stop:
-                        break
-                    if int(row[6]) != sm["counter"]:
-                        raise RuntimeError(f"device/host kill counter diverged at epoch {i}: "
-                                           f"device {int(row[6])} != host {sm['counter']}")
-                if stop and j < k - 1:
-                    # a stop inside the chunk: run it again from its start
-                    # up to the stop, so the state is the stop epoch's
-                    runner.restore()
-                    again = runner.run(next_i, j + 1, init).tolist()
-                    if not np.array_equal(again, rows[:j + 1], equal_nan=True):
-                        raise RuntimeError(f"the replay of epochs {next_i}-{i} differs from "
-                                           "their first run")
-                if snapshots:   # the last, after the replay: the runner's best
-                    self.best_model = runner.best_model()
-                if stepper is not None:
-                    stepper.write_steps()
+                rows = runner.run(next_i, k, init)
+                with profiling.span("nf.read.chunk"):   # the chunk's one sync
+                    profiling.HOST_READS += 1
+                    rows = rows.tolist()
+                with profiling.span("nf.train.host"):
+                    snapshots = []
+                    for j, row in enumerate(rows):
+                        i = next_i + j
+                        # the device ran the host's machine: any drift is a bug
+                        # (nf_tpu manager.py:806-828)
+                        if bool(row[5]) != sm["preburner"]:
+                            raise RuntimeError(f"device/host preburn state diverged at epoch {i}")
+                        stop = process_epoch(i, *row[:5], lambda: snapshots.append(i))
+                        if stop:
+                            break
+                        if int(row[6]) != sm["counter"]:
+                            raise RuntimeError(f"device/host kill counter diverged at epoch {i}: "
+                                               f"device {int(row[6])} != host {sm['counter']}")
+                    if stop and j < k - 1:
+                        # a stop inside the chunk: run it again from its start
+                        # up to the stop, so the state is the stop epoch's
+                        with profiling.span("nf.chunk.rerun"):
+                            runner.restore()
+                            again = runner.run(next_i, j + 1, init)
+                            with profiling.span("nf.read.rerun"):
+                                profiling.HOST_READS += 1
+                                again = again.tolist()
+                        if not np.array_equal(again, rows[:j + 1], equal_nan=True):
+                            raise RuntimeError(f"the replay of epochs {next_i}-{i} differs from "
+                                               "their first run")
+                    if snapshots:   # the last, after the replay: the runner's best
+                        self.best_model = runner.best_model()
+                    if stepper is not None:
+                        stepper.write_steps()
                 next_i += k
 
         if pbar is not None:
@@ -573,7 +601,7 @@ class BasicManager:
         if integrate and endpoint < total - 1:
             best = self.best_model
             self.best_eval_mode = True    # reference flips best_model to eval
-            with torch.no_grad():
+            with torch.no_grad(), profiling.span("nf.train.tail"):
                 for s in range(endpoint, total):
                     means, stds = [], []
                     for _ in range(n_minibatches):
@@ -584,7 +612,10 @@ class BasicManager:
                         stds.append(torch.sqrt(var[0]))
                     ie = torch.mean(torch.stack(means)) / math.sqrt(mini_batch_size)
                     ee = torch.mean(torch.stack(stds))
-                    ie, ee = torch.stack([ie, ee]).tolist()
+                    tail = torch.stack([ie, ee])
+                    with profiling.span("nf.read.tail"):
+                        profiling.HOST_READS += 1
+                        ie, ee = tail.tolist()
                     integ[s + 1] += ie
                     err[s + 1] += ee
                     self.best_func_count += batch_size
@@ -608,6 +639,7 @@ class BasicManager:
             return (self.integ_tot, self.err_tot)
         return (0, 0)
 
+    @profiling.spanned("nf.train.first_estimate")
     def _phase_a(self, f, mini_batch_size, batch_size, loss_mode, snapshot, integ, err):
         """The initial estimate on raw uniform points (reference
         manager.py:139-167) into ``integ[0]``, ``err[0]`` and the manager's
@@ -632,15 +664,19 @@ class BasicManager:
                 else:
                     best_loss = best_loss + means[3] / n_flow
                 best_var = best_var + var[2] / 2 * mini_batch_size
-            integ[0], err[0], self.best_loss, self.best_var = \
-                torch.stack([integ0, err0, best_loss, best_var]).tolist()
+            first = torch.stack([integ0, err0, best_loss, best_var])
+            with profiling.span("nf.read.first_estimate"):
+                profiling.HOST_READS += 1
+                integ[0], err[0], self.best_loss, self.best_var = first.tolist()
             if snapshot:
                 x, jacv = model(w, True, group)
-                self.varJ = float(global_mean(jacv ** 2, group))
+                varJ = global_mean(jacv ** 2, group)
                 # torch KLDivLoss default 'mean' divides by numel = B * n_flow
-                self.DKL = float(all_reduce_sum(
-                    torch.sum(w * (torch.log(w) - torch.log(x + 1e-45))), group)
-                    / (w.numel() * size))
+                DKL = all_reduce_sum(torch.sum(w * (torch.log(w) - torch.log(x + 1e-45))),
+                                     group) / (w.numel() * size)
+                with profiling.span("nf.read.first_estimate"):
+                    profiling.HOST_READS += 2
+                    self.varJ, self.DKL = float(varJ), float(DKL)
                 self.best_model = copy.deepcopy(model)
                 self.best_epoch = 0
                 self.best_time = 0
@@ -736,6 +772,7 @@ class BasicManager:
 
     # -- post-training integrator (reference manager.py:380-405) ------------
 
+    @profiling.spanned("nf.integrate")
     def integrate(self, f, nitn, neval, dev=None, seed=None, combine="iw", method=None,
                   mesh=None):
         """Post-training MC estimate: ``nitn`` iterations of ``neval``
@@ -796,11 +833,12 @@ class BasicManager:
 
                 def draw(i):
                     return sampler(gen)
-            for i in range(nitn):
-                x, jacv = draw(i)
-                fres = f(x) * jacv
-                means.append(torch.mean(fres))
-                variances.append(torch.var(fres))
+            with profiling.span("nf.integrate.iterations"):
+                for i in range(nitn):
+                    x, jacv = draw(i)
+                    fres = f(x) * jacv
+                    means.append(torch.mean(fres))
+                    variances.append(torch.var(fres))
             sig, sig_err = psampling.combine_iterations(torch.stack(means),
                                                         torch.stack(variances), neval * nitn,
                                                         combine)
@@ -986,6 +1024,7 @@ class BasicManager:
 class AffineManager(BasicManager):
     """Affine coupling cells + roll layers (reference manager.py:411-453)."""
 
+    @profiling.spanned("nf.create_model")
     def create_model(self, n_pass_through, n_cells, NN, roll_step, dev=None,
                      identity_init=False):
         """``dev``, the reference's device index, is ignored: the device is
@@ -998,6 +1037,7 @@ class AffineManager(BasicManager):
 class PWLinManager(BasicManager):
     """Piecewise-linear coupling cells + roll layers (reference manager.py:456-499)."""
 
+    @profiling.spanned("nf.create_model")
     def create_model(self, n_pass_through, n_cells, n_bins, NN, roll_step,
                      dev=None, identity_init=False, final_rank=None, activation="exp"):
         """``dev``, the reference's device index, is ignored: the device is
@@ -1012,6 +1052,7 @@ class PWQuadManager(BasicManager):
     """Piecewise-quadratic cells; masked partition for n_flow > 7
     (reference manager.py:502-600)."""
 
+    @profiling.spanned("nf.create_model")
     def create_model(self, n_cells, n_bins, NN, dev=None, identity_init=False,
                      final_rank=None, activation="exp"):
         """``dev``, the reference's device index, is ignored: the device is

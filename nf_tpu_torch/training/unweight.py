@@ -14,6 +14,12 @@ repeat a proposal.  Under a ``mesh`` each rank maps its rows of every
 proposal batch (:func:`nf_tpu_torch.parallel.sampling.make_dp_sampler`) and
 the rest runs on the gathered global batch on every rank, so the events
 equal the single-device run's on the same draws.
+
+Spans (:mod:`nf_tpu_torch.utils.profiling`): ``nf.unweight`` is the call,
+``nf.unweight.pilot`` the w_max pilot, ``nf.unweight.batch`` one proposal
+batch, with ``nf.unweight.propose`` (the draw), ``nf.unweight.accept``
+(the uniforms, the compare, the over-weight count) and ``nf.read.rows``
+(:func:`_accepted`) inside it; the integrand runs inside the batch span.
 """
 
 from __future__ import annotations
@@ -26,6 +32,7 @@ import torch
 from nf_tpu_torch.flows import sampling as fsampling
 from nf_tpu_torch.ops.pwquad_sampler import model_device
 from nf_tpu_torch.parallel.sampling import make_dp_sampler
+from nf_tpu_torch.utils import profiling
 
 
 def _make_draw(flow, model, n, train, method):
@@ -61,12 +68,14 @@ def _quantile(a, q):
 
 def _reference_weight(draw, f, generator, quantile):
     """The largest weight ``f(x) jac`` of one ``draw(generator)``, or with
-    ``quantile < 1`` that quantile."""
+    ``quantile < 1`` that quantile: one host read."""
     with torch.no_grad():
         x, jacv = draw(generator)
         weights = f(x) * jacv
         ref = torch.max(weights) if quantile >= 1.0 else _quantile(weights, quantile)
-    return float(ref)
+    with profiling.span("nf.read.wmax"):
+        profiling.HOST_READS += 1
+        return float(ref)
 
 
 def estimate_wmax(flow, model, f, generator, n=100_000, train=False, safety=1.0,
@@ -89,28 +98,36 @@ def unweighted_batch(flow, model, f, generator, n_proposals, w_max, train=False,
     if draw is None:
         draw = _make_draw(flow, model, n_proposals, train, None)
     with torch.no_grad():
-        x, jacv = draw(generator)
+        with profiling.span("nf.unweight.propose"):
+            x, jacv = draw(generator)
         weights = f(x) * jacv
-        u = _uniform(generator, n_proposals, weights.dtype, weights.device)
-        accept = weights > u * w_max
-        n_over = torch.sum(weights > w_max)
-        if return_weights:
-            return x, accept, n_over, torch.clamp_min(weights / w_max, 1.0)
+        with profiling.span("nf.unweight.accept"):
+            u = _uniform(generator, n_proposals, weights.dtype, weights.device)
+            accept = weights > u * w_max
+            n_over = torch.sum(weights > w_max)
+            if return_weights:
+                return x, accept, n_over, torch.clamp_min(weights / w_max, 1.0)
     return x, accept, n_over
 
 
 def _accepted(x, accept, n_over, wtilde, capacity):
     """The batch's first ``capacity`` (``None``: all) accepted rows of ``x``
     and of ``wtilde``, in order, gathered on the device and copied to the
-    host: ``(rows, weights or None, n_accepted, n_overweight)``, one sync."""
-    n_true, n_over = torch.stack([accept.sum(), n_over]).tolist()
-    k = n_true if capacity is None else min(n_true, capacity)
-    idx = torch.searchsorted(torch.cumsum(accept, 0),
-                             torch.arange(1, k + 1, device=accept.device))
-    rows = x[idx].cpu().numpy()
-    return rows, None if wtilde is None else wtilde[idx].cpu().numpy(), n_true, n_over
+    host: ``(rows, weights or None, n_accepted, n_overweight)``.  Host reads:
+    the two counts together, the rows and the weights (the span
+    ``nf.read.rows``)."""
+    counts = torch.stack([accept.sum(), n_over])
+    with profiling.span("nf.read.rows"):
+        profiling.HOST_READS += 2 if wtilde is None else 3
+        n_true, n_over = counts.tolist()
+        k = n_true if capacity is None else min(n_true, capacity)
+        idx = torch.searchsorted(torch.cumsum(accept, 0),
+                                 torch.arange(1, k + 1, device=accept.device))
+        rows = x[idx].cpu().numpy()
+        return rows, None if wtilde is None else wtilde[idx].cpu().numpy(), n_true, n_over
 
 
+@profiling.spanned("nf.unweight")
 def generate_unweighted(flow, model, f, generator, n_events, w_max=None, train=False,
                         batch=1 << 17, max_batches=1000, wmax_quantile=1.0, method="auto",
                         mesh=None, partial_unweight=False, compact="auto"):
@@ -163,7 +180,8 @@ def generate_unweighted(flow, model, f, generator, n_events, w_max=None, train=F
         def draw_of(n):
             return _make_draw(flow, model, n, train, method)
     if w_max is None:   # estimate_wmax's pilot
-        w_max = _reference_weight(draw_of(100_000), f, generator, wmax_quantile) * 1.05
+        with profiling.span("nf.unweight.pilot"):
+            w_max = _reference_weight(draw_of(100_000), f, generator, wmax_quantile) * 1.05
     draw = draw_of(batch)
 
     out, out_w, n_acc, n_prop, n_over = [], [], 0, 0, 0
@@ -171,25 +189,26 @@ def generate_unweighted(flow, model, f, generator, n_events, w_max=None, train=F
     if isinstance(compact, int) and not isinstance(compact, bool):
         capacity = int(min(max(compact, 1), batch))
     for _ in range(max_batches):
-        x, accept, over, wtilde = unweighted_batch(flow, model, f, generator, batch, w_max,
-                                                   train, draw, return_weights=True)
-        rows, wts, n_true, over = _accepted(x, accept, over,
-                                            wtilde if partial_unweight else None, capacity)
-        out.append(rows)
-        if partial_unweight:
-            out_w.append(wts)
-        n_acc += rows.shape[0]
-        n_prop += batch
-        n_over += over
-        if capacity is not None and n_true > capacity:   # surplus dropped: grow
-            capacity = min(2 * capacity, batch)
-        if n_acc >= n_events:
-            break
-        if compact and capacity is None:
-            # the first batch sizes the capacity: 1.5x its accept rate, at
-            # least 1024 rows so a low first batch does not pin it small
-            rate = max(n_acc / max(n_prop, 1), 1.0 / batch)
-            capacity = int(min(max(1024, 1.5 * rate * batch), batch))
+        with profiling.span("nf.unweight.batch"):
+            x, accept, over, wtilde = unweighted_batch(flow, model, f, generator, batch, w_max,
+                                                       train, draw, return_weights=True)
+            rows, wts, n_true, over = _accepted(x, accept, over,
+                                                wtilde if partial_unweight else None, capacity)
+            out.append(rows)
+            if partial_unweight:
+                out_w.append(wts)
+            n_acc += rows.shape[0]
+            n_prop += batch
+            n_over += over
+            if capacity is not None and n_true > capacity:   # surplus dropped: grow
+                capacity = min(2 * capacity, batch)
+            if n_acc >= n_events:
+                break
+            if compact and capacity is None:
+                # the first batch sizes the capacity: 1.5x its accept rate, at
+                # least 1024 rows so a low first batch does not pin it small
+                rate = max(n_acc / max(n_prop, 1), 1.0 / batch)
+                capacity = int(min(max(1024, 1.5 * rate * batch), batch))
     events = np.concatenate(out, axis=0)
     if partial_unweight:
         w_all = np.concatenate(out_w, axis=0)

@@ -1,19 +1,67 @@
 """Tracing / profiling helpers.
 
 Counterpart of ``nf_tpu.utils.profiling``.  The reference's observability is
-tqdm bars and datetime deltas (SURVEY.md section 5).  Here: a
-``torch.profiler`` trace capture for TensorBoard / Perfetto, and a
-wall-clock timer that waits for the device work of its outputs, so timings
-measure compute rather than launch.
+tqdm bars and datetime deltas (SURVEY.md section 5).  Here:
+
+  * a ``torch.profiler`` trace capture for TensorBoard / Perfetto
+    (:func:`device_profile`, :func:`trace`);
+  * the program's spans (:func:`span`, :func:`spanned`): named host ranges at
+    the phase boundaries of its calls, ``nf.integrate``, ``nf.fold``,
+    ``nf.chunk.capture.epoch`` and the others PERF.md section 3 lists.  While
+    a ``torch.profiler`` records they are ``record_function`` ranges in the
+    same trace as the host's operations and the device's records, on the
+    same clock, nested as they are called (~10-14 us a span under a CPU and
+    CUDA profile on an NVIDIA H100 machine's host); otherwise a span is one
+    check of the profiler's flag and a shared null context (~0.7 us there);
+  * :data:`HOST_READS`, the count of blocking reads of device data into host
+    memory on the program's call paths, each inside an ``nf.read.<site>``
+    span;
+  * a wall-clock timer that waits for the device work of its outputs, so
+    timings measure compute rather than launch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
 from collections.abc import Mapping
 
 import torch
+
+# Blocking reads of device data into host memory since import (or since a
+# caller reset it), one per tensor read: the BatchNorm fold's copies
+# (interop.to_numpy), a kernel seed's draw, the unweighter's count and rows,
+# its w_max, an integral's result, the trainer's first estimate, a chunk's
+# rows (and their replay after a stop inside it), an epoch's statistics and
+# the tail integration's.  A read from a CPU tensor counts the same.
+HOST_READS = 0
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager that marks the block as the span ``name`` while a
+    ``torch.profiler`` records: a ``record_function`` range, whose parent is
+    the span around it.  Otherwise a shared null context.
+
+    >>> with profiling.span("nf.fold"):
+    ...     folded = fold_eval_params(flow, model)
+    """
+    if torch._C._autograd._profiler_enabled():
+        return torch.autograd.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def spanned(name: str):
+    """Decorate a function to run inside :func:`span` ``(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 # The warm-up step of a profile on the card: tiny kernels, each waited for,
