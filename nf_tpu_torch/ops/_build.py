@@ -97,6 +97,12 @@ def library() -> ctypes.CDLL:
     lib.nf_pwquad_train_fwd.restype = i
     lib.nf_pwquad_train_bwd.argtypes = [p, i, p, i, p, p, p, p, p, p, i64, i, i, i, i, i,
                                         i, i64, p, i64, i, ctypes.POINTER(ctypes.c_int), p]
+    lib.nf_pwquad_train_bwd_tiled.argtypes = [p, i, p, i, p, i, p, p, p, p, p, p, i64, i, i,
+                                              i, i, i, ctypes.POINTER(ctypes.c_int), i64, p]
+    lib.nf_pwquad_train_bwd_tiled.restype = i
+    lib.nf_pwquad_train_bwd_tiled_occupancy.argtypes = [i, i, i, i64,
+                                                        ctypes.POINTER(ctypes.c_int)]
+    lib.nf_pwquad_train_bwd_tiled_occupancy.restype = i
     lib.nf_pwquad_train_bwd.restype = i
     d = ctypes.c_double
     lib.nf_optim_step.argtypes = [i, i, i, p, p, p, p, p, p, p, p, i64, d, d, d, d, d, i, p]
@@ -119,7 +125,8 @@ def _check_limits(lib):
 
     sampler = (ps.SAMPLER_MAX_BLOCK,)
     train = (pt.BWD_LOCAL_FLOW, pt.BWD_LOCAL_HIDDEN, pt.BWD_LOCAL_BINS, pt.BWD_LOCAL_ACTS,
-             pt.FWD_MAX_BLOCK, pt.BWD_MAX_BLOCK)
+             pt.FWD_MAX_BLOCK, pt.BWD_MAX_BLOCK, pt.BWD_TILED_MAX_FIN, pt.BWD_TILED_MAX_BLOCK,
+             *(pt.BWD_TILED_MIN_BLOCKS[rt] for rt in (1, 2, 4)))
     for fn, want in ((lib.nf_pwquad_sampler_limits, sampler),
                      (lib.nf_pwquad_train_limits, train)):
         caps = (ctypes.c_int * len(want))()

@@ -23,14 +23,22 @@
 // then 2 per hidden unit, layer after layer (the layout stats_to_bn_state
 // reads).
 //
-// Backward, per sample: walk the plan in reverse.  A permutation sends the
-// cotangent back through its inverse.  A cell recomputes its conditioner from
-// `stage`, keeping every layer's input, then streams the last layer one
+// Backward: three kernels, one chosen per plan by its widths
+// (pwquad_train.bwd_kernel_for).  Each walks the plan in reverse; a cell
+// recomputes its conditioner from `stage`, then streams the last layer one
 // transformed dimension at a time: that dimension's logits, its closed-form
 // VJP (pbar = jbar * jac / p), and its share of the last hidden layer's
-// cotangent.  The whole last-layer cotangent (136 wide in the widest cell of
-// the 10-D flagship) is never held.  Then the hidden layers backward, with
-// their ReLU masks.
+// cotangent, so the whole last-layer cotangent (136 wide in the widest cell
+// of the 10-D flagship) is never held; then the hidden layers backward,
+// with their ReLU masks.  The tiled kernel (train_bwd_tiled_kernel), for
+// plans with a layer 32 wide or more, holds a tile of samples in
+// feature-major shared-memory tiles and runs every product as a block
+// product in register tiles (its section below).  The per-thread kernel
+// (train_bwd_kernel), for narrower plans, runs a thread a sample on local
+// arrays, and a permutation sends the cotangent back through its inverse;
+// beyond its arrays' sizes it takes them from a device workspace
+// (train_bwd_ws_kernel), as plans too wide for the tiled kernel's register
+// tiles do.
 //
 // Accumulation across samples, without float atomics.  A block's threads run
 // a block-uniform grid-stride loop over tiles (a lane past n computes on
@@ -39,11 +47,12 @@
 // over the valid samples, split at most STATS_MAX_SPLIT ways with a
 // fixed-order merge, into one double accumulator per block; each block
 // writes it to row `block` of a [n_blocks, rows] scratch.  The weight
-// gradient, one layer at a time, as a block product (block_dw): every thread stages its
-// sample's layer input and output cotangent in shared-memory tiles, and
-// after a barrier the block adds H^T G over its samples into one
-// accumulator of n_weights floats, each entry summed by one thread in a
-// fixed order; each block writes its accumulator to its row of the scratch.
+// gradient, one layer (or one dimension's columns) at a time, as a block
+// product (block_dw; tile_dw in the tiled kernel): the layer's input and
+// output cotangent sit in shared-memory tiles, and after a barrier the
+// block adds H^T G over its samples into one accumulator of n_weights
+// floats, each entry summed by one thread in a fixed order; the
+// accumulator is the block's own row of the scratch.
 // The wrapper sums the scratch over blocks.  Each kernel's grid depends on n
 // and the plan's launch configuration alone, so two launches on the same
 // inputs give bit-identical gradients and statistics.  Statistics
@@ -51,25 +60,29 @@
 // in f32); weight gradients in f32, which the trainer averages and Adamax
 // normalises.
 //
-// What bounds it on an H100.  The backward: latency.  Its per-sample work
-// (the recompute from `stage`, the transform VJPs, the cotangent through the
-// MLP) reads every weight from shared memory or L1 and keeps its per-thread
-// arrays (~3 KB of stack) in local memory, which misses L1 once several
-// blocks share an SM; the dW products add about one FMA and one
-// shared-memory load per weight per sample, and two barriers per layer.  A
-// plan beyond the local arrays' sizes (MAX_* below) runs the workspace
-// kernel, whose arrays are plan-sized slices of a device buffer
-// (train_bwd_ws_kernel): the same arithmetic, more device-memory traffic.  So
-// what helps is more warps per SM and fewer barriers per sample: the
-// wrapper picks the block size (128 to 512 samples, 64 or 32 where none of
-// those fits) and whether the weights sit in shared memory or are read
-// through L1 per plan, to keep the most threads resident with at least two
-// blocks per SM (the 10-D flagship: blocks of 256 with the weights through
-// L1; camel: blocks of 512 with the weights in shared memory).  The
-// dW accumulator is the block's own row of the partial-gradient scratch in
-// device memory, so it takes no shared memory and caps no plan's width
-// (held in shared memory it refused plans beyond about 56k weights).  The
-// forward: the shared-memory pipe and latency.  It keeps no per-thread array: every activation, logit
+// What bounds it on an H100.  The tiled backward: its FMAs and the
+// barriers between its phases.  Of the 2 -> 4 plan's ~270k backward FMAs a
+// sample ~93% are the last layer's three products (logits, input
+// cotangent, weight gradient: 65 x 33 for each of 40 transformed
+// dimensions); in register tiles each float4 of a tile and four weights
+// feed 16 FMAs, with no local memory, beside the per-sample VJPs (a thread
+// a sample on shared-memory columns) and four barriers a dimension.  Its
+// 146-210 registers a thread (no spills) leave three blocks of 128 an SM
+// with one or two register tiles of R and two with four
+// (BWD_TILED_MIN_BLOCKS); on the 2 -> 4 plan ~110 KB of shared memory a
+// block leave two: 20.3 ms per 2^18, 11% of its bound, against 62 ms on
+// local arrays (PERF.md section 6).  On camel's and the flagship's narrow
+// layers the products are too small to pay for the barriers (2.3x and
+// 1.18x slower than the per-thread kernel at three blocks an SM), so
+// those run the per-thread kernel: latency, every weight read from
+// shared memory or L1, its arrays (~3 KB of stack) in local memory, the
+// dW products one FMA and one shared-memory load a weight a sample, two
+// barriers a layer; the wrapper picks its block size (128 to 512, 64 or
+// 32) and the weights' place to keep the most threads resident with at
+// least two blocks per SM.  Every kernel's dW accumulator is the block's
+// own row of the partial-gradient scratch in device memory, so it takes no
+// shared memory and caps no plan's width.  The forward: the shared-memory
+// pipe and latency.  It keeps no per-thread array: every activation, logit
 // and state value is a conflict-free shared-memory access to the thread's
 // own column (a warp's 32 columns are consecutive).  Each thread computes a
 // layer's outputs four at a time, so one activation load feeds four FMAs,
@@ -90,8 +103,8 @@
 
 #include "flow_plan.cuh"
 
-// The backward's per-thread arrays at these sizes are local arrays; a plan
-// beyond any of them runs the workspace kernel (train_bwd_ws_kernel below).
+// The per-thread backward's arrays at these sizes are local arrays; a plan
+// beyond any of them runs it on a workspace (train_bwd_ws_kernel below).
 #define MAX_FLOW 32    // latent dims
 #define MAX_HIDDEN 64  // any layer's fan_in
 #define MAX_BINS 32    // bins of a pwquad / pwlin cell
@@ -388,6 +401,118 @@ __device__ float affine_dim_vjp(float z_s, float z_t, float x, float ybar,
                      + pbar * (20.0f * q.s0) * (-2.0f * q.u) * q.diff * q.diff;
   zbar[0] = ubar * 20.0f * x * q.s0 + pbar * q.p;
   zbar[1] = z_t > 0.0f ? ubar : 0.0f;
+  return ubar * 20.0f * q.s0;
+}
+
+// ---------------------------------------------------------------------------
+// Closed-form VJPs of one transformed dimension (nf_tpu/ops/pwquad_train.py
+// _pwquad_dim_bwd, _pwlin_dim_bwd, _affine_dim_bwd) for the tiled backward,
+// on one sample's columns of its shared-memory tiles: z holds the
+// dimension's logits and is replaced in place by their cotangent; sc is a
+// scratch column as long as the logits.  jj = jbar * jac, so pbar = jj / p
+// is the cotangent of this dimension's pdf.  They return x's cotangent.
+//
+// The arithmetic and its order are the per-thread kernel's VJPs' above,
+// term for term, with one scratch array where those keep four: the per-bin
+// cotangents that are a closed form of the normalised heights and widths
+// (vbar, pdfbar) are formed where they are read, g where it is read, and
+// ubar takes the slots of the heights it no longer needs.  (nvcc fuses a
+// few multiplies and adds of the two differently, so a sample's cotangent
+// may differ between the kernels in the last bits.)
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float pwquad_dim_vjp_col(TileCol z, TileCol vu, int nb, int act,
+                                                    float x_raw, float ybar, float jj) {
+  for (int k = 0; k < 2 * nb + 1; ++k) vu[k] = z[k];
+  const PwquadDim q = pwquad_dim(vu, nb, act, x_raw);
+  const TileCol v = vu;
+  const TileCol u = vu + (nb + 1);
+  const int b = q.bin;
+  const float pbar = jj / q.p;
+  const float a = q.a, dv = q.v_hi - q.v_lo, inv_wb = 1.0f / q.w_b;
+
+  // through y = a^2/2 dv w_b + a v_lo w_b + S_b and p = v_lo + dv a
+  const float abar = ybar * q.p * q.w_b + pbar * dv;
+  const float c_vlo = ybar * q.w_b * (a - 0.5f * a * a) + pbar * (1.0f - a);
+  const float c_vhi = ybar * q.w_b * (0.5f * a * a) + pbar * a;
+  const float c_ub_sel = ybar * (0.5f * a * a * dv + a * q.v_lo) - abar * a * inv_wb;
+  const float c_u_pre = -abar * inv_wb;  // through the left edge sum_{j<b} u_j
+  // vbar[k]: 0, plus bin k - 1's share, plus bin k's (through S_b and the
+  // bin's edges), in the order the workspace kernel adds them
+  auto vbar = [&](int k) {
+    float s = 0.0f;
+    if (k > 0) {
+      const float trap = k - 1 < b ? ybar * 0.5f * u[k - 1] : 0.0f;
+      s += (k - 1 == b ? c_vhi : 0.0f) + trap;
+    }
+    if (k < nb) {
+      const float trap = k < b ? ybar * 0.5f * u[k] : 0.0f;
+      s += (k == b ? c_vlo : 0.0f) + trap;
+    }
+    return s;
+  };
+
+  // trapezoid normalisation v_k = g_k / T, T = sum_k (g_k + g_{k+1}) / 2 u_k
+  const float inv_T = 1.0f / q.vnorm;
+  float svv = 0.0f;
+  for (int k = 0; k <= nb; ++k) svv += vbar(k) * v[k];
+  const float Tbar = -svv * inv_T;
+  // the heights' cotangents in place, and ubar[k - 1] into v[k - 1]'s slot
+  // once v[k - 1] and v[k] are read
+  float g_lo = 0.0f;
+  for (int k = 0; k <= nb; ++k) {
+    const float zk = z[k];
+    const float g = positivity(zk, act);
+    float gbar = vbar(k) * inv_T;
+    if (k > 0) gbar += Tbar * 0.5f * u[k - 1];
+    if (k < nb) gbar += Tbar * 0.5f * u[k];
+    z[k] = gbar * positivity_grad(zk, act);
+    if (k > 0) {
+      const int j = k - 1;
+      const float ub = j == b ? c_ub_sel
+                              : (j < b ? c_u_pre + ybar * 0.5f * (v[j] + v[k]) : 0.0f);
+      // the workspace kernel adds g[j] and g[k] as they come back from memory
+      v[j] = ub + Tbar * 0.5f * __fadd_rn(g_lo, g);
+    }
+    g_lo = g;
+  }
+
+  // width normalisation u_k = e_k / W (v[k] now holds ubar[k])
+  float suu = 0.0f;
+  for (int k = 0; k < nb; ++k) suu += v[k] * u[k];
+  for (int k = 0; k < nb; ++k)
+    z[nb + 1 + k] = (v[k] - suu) * positivity_grad(z[nb + 1 + k], act) / q.wtot;
+
+  // x is clamped to CLAMP_HI: no cotangent above it
+  return x_raw < CLAMP_HI ? ybar * q.p + pbar * dv * inv_wb : 0.0f;
+}
+
+__device__ __forceinline__ float pwlin_dim_vjp_col(TileCol z, TileCol q, int nb, int act,
+                                                   float x, float ybar, float jj) {
+  for (int k = 0; k < nb; ++k) q[k] = positivity(z[k], act);
+  const PwlinDim r = pwlin_dim(q, nb, x);
+  const float pbar = jj / r.p;
+  // y = pdf_b alpha + sum_{j<b} pdf_j / n, p = pdf_b, pdf_k = n q_k / Q
+  auto pdfbar = [&](int k) {
+    return k == r.bin ? ybar * r.alpha + pbar : (k < r.bin ? ybar / (float)nb : 0.0f);
+  };
+  float s = 0.0f;
+  for (int k = 0; k < nb; ++k) s += pdfbar(k) * (q[k] / (r.qtot / (float)nb));
+  s /= (float)nb;
+  for (int k = 0; k < nb; ++k)
+    z[k] = (pdfbar(k) - s) * (float)nb * positivity_grad(z[k], act) / r.qtot;
+  return ybar * r.p;  // dy/dx = pdf_b
+}
+
+__device__ __forceinline__ float affine_dim_vjp_col(TileCol z, float x, float ybar, float jj) {
+  const float z_s = z[0], z_t = z[1];
+  const AffineDim q = affine_dim(z_s, z_t, x);
+  const float pbar = jj / q.p;  // jac carries the cell's 2/pi, jac / p keeps it
+  // the true derivative of atan, 1 / (1 + u^2)
+  const float ubar = ybar * TWO_OVER_PI * q.diff
+                     + pbar * (20.0f * q.s0) * (-2.0f * q.u) * q.diff * q.diff;
+  z[0] = ubar * 20.0f * x * q.s0 + pbar * q.p;
+  z[1] = z_t > 0.0f ? ubar : 0.0f;
   return ubar * 20.0f * q.s0;
 }
 
@@ -985,6 +1110,519 @@ train_bwd_ws_kernel(const int* __restrict__ desc, int desc_len,
   }
 }
 
+// ---------------------------------------------------------------------------
+// The tiled backward, train_bwd_tiled_kernel.  Each block walks tiles of
+// B = blockDim.x samples in a grid-stride loop, and every per-sample value
+// lives in a feature-major shared-memory tile, a row of S = B + 4 floats
+// per feature (a multiple of four, so four samples of a row are one
+// float4; rows four floats apart spread a warp's loads from consecutive
+// rows over the banks):
+//   X  [n_flow]  the cell's input, from `stage`, in logical order;
+//   XB [n_flow]  the cotangent of the state, row for row the forward's
+//                state tile (pwquad_train.fwd_table's maps), so a
+//                permutation moves nothing;
+//   H  [h_rows]  the last hidden layer's output (after its ReLU);
+//   Z  [z_rows]  one transformed dimension's logits, replaced in place by
+//                their cotangent; after the dimensions, the hidden layers'
+//                output cotangents, two halves in turn;
+//   V  [v_rows]  each sample's VJP scratch column; after the dimensions,
+//                the other hidden layers' outputs, computed again.
+// The matrix products are block products in which each thread owns a
+// register tile of four rows by four samples (or four by four weights): one
+// float4 of a tile and four weights feed 16 FMAs.  Every sum keeps the
+// per-sample order of the workspace kernel (bias first, then the inputs in
+// order; the cotangent over the dimensions and logits in order), so a
+// sample's latent cotangent is the same whatever the launch.
+// ---------------------------------------------------------------------------
+
+#define BWD_TILED_MAX_BLOCK 128  // threads (samples) per tiled backward block
+#define BWD_TILED_MAX_FIN 64     // a last layer's fan_in: 16 rows a register tile of R
+// Blocks of BWD_TILED_MAX_BLOCK an SM holds by registers, by R's register
+// tiles (pwquad_train.BWD_TILED_MIN_BLOCKS): ptxas caps a thread at 168
+// registers for three, 255 for two.
+#define BWD_TILED_MIN_BLOCKS(RT) ((RT) == 4 ? 2 : 3)
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// c[i][e] = fmaf(a[i], b[e], c[i][e])
+__device__ __forceinline__ void outer4(float (&c)[4][4], float4 a, float4 b) {
+  const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[i][e] = fmaf(av[i], bv[e], c[i][e]);
+}
+
+// Weights k0 .. k0 + 3 of one column, rows i1, i2, i3 floats apart: from
+// shared memory, or through L1.
+template <bool W_SMEM>
+__device__ __forceinline__ float4 load_col4(const float* __restrict__ p, int i1, int i2, int i3) {
+  if (W_SMEM) return make_float4(p[0], p[i1], p[i2], p[i3]);
+  return make_float4(__ldg(p), __ldg(p + i1), __ldg(p + i2), __ldg(p + i3));
+}
+
+// out[r][s] = b[r] + sum_k in[k][s] w[k ld + r step] for r < n_out and the
+// tile's samples, through a ReLU where relu: bias first, k ascending, as
+// the forward sums it.  With W_SMEM, w is a copy padded to rows of ld, a
+// multiple of four, and step is 1.  A task is four rows by four samples.
+template <bool W_SMEM>
+__device__ __forceinline__ void tile_dense(const float* __restrict__ w,
+                                           const float* __restrict__ b, int ld, int step,
+                                           int fan_in, int n_out, const float* in, float* out,
+                                           int S, bool relu) {
+  const int B = blockDim.x, SG = B >> 2;
+  const int n_tasks = ((n_out + 3) >> 2) * SG;
+  for (int task = threadIdx.x; task < n_tasks; task += B) {
+    const int rg = task / SG, r0 = rg << 2, s0 = (task - rg * SG) << 2;
+    const int left = n_out - r0;
+    const int j1 = min(1, left - 1) * step, j2 = min(2, left - 1) * step;
+    const int j3 = min(3, left - 1) * step;
+    const float4 bias = load4<W_SMEM>(b + r0 * step, j1, j2, j3);
+    const float bv[4] = {bias.x, bias.y, bias.z, bias.w};
+    float a[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[c][e] = bv[c];
+    const float* wr = w + r0 * step;
+#pragma unroll 2
+    for (int k = 0; k < fan_in; ++k)
+      outer4(a, load4<W_SMEM>(wr + k * ld, j1, j2, j3), ld4(in + k * S + s0));
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (c < left) {
+        float4 o = make_float4(a[c][0], a[c][1], a[c][2], a[c][3]);
+        if (relu)
+          o = make_float4(fmaxf(o.x, 0.0f), fmaxf(o.y, 0.0f), fmaxf(o.z, 0.0f), fmaxf(o.w, 0.0f));
+        *reinterpret_cast<float4*>(out + (r0 + c) * S + s0) = o;
+      }
+    }
+  }
+}
+
+// a[c][e] = fmaf(w[(k0 + c) ld + r step], g[r][s0 + e], a[c][e]) for
+// r < n_out ascending: a layer input's cotangent from its output's, in the
+// per-sample VJP's order.  Rows past n_in repeat the last.
+template <bool W_SMEM>
+__device__ __forceinline__ void tile_back(float (&a)[4][4], const float* __restrict__ w, int ld,
+                                          int step, int k0, int n_in, int n_out, const float* g,
+                                          int S, int s0) {
+  const int left = n_in - k0;
+  const int i1 = min(1, left - 1) * ld, i2 = min(2, left - 1) * ld, i3 = min(3, left - 1) * ld;
+  const float* wk = w + k0 * ld;
+#pragma unroll 2
+  for (int r = 0; r < n_out; ++r)
+    outer4(a, load_col4<W_SMEM>(wk + r * step, i1, i2, i3), ld4(g + r * S + s0));
+}
+
+// acc[w_off + k ld + r step] += sum_s in[k][s] g[r][s] and
+// acc[b_off + r step] += sum_s g[r][s], for k < n_in and r < n_out, over
+// the tile's B samples in order (a lane past n has g 0).  A task owns the
+// rows k = kg + c nkg and r = rg + e nrg (c, e < 4), so that consecutive
+// tasks read consecutive rows of g; the tasks of kg 0 also own the biases.
+// Each entry's sum has one owner and one order, and acc is the block's own
+// row of the partial-gradient scratch: no atomics.
+__device__ __forceinline__ void tile_dw(const float* in, const float* g, int S, int n_in,
+                                        int n_out, float* __restrict__ acc, int w_off,
+                                        int b_off, int ld, int step) {
+  const int B = blockDim.x;
+  const int nkg = (n_in + 3) >> 2, nrg = (n_out + 3) >> 2;
+  for (int task = threadIdx.x; task < nkg * nrg; task += B) {
+    const int kg = task / nrg, rg = task - kg * nrg;
+    const float* hp[4];
+    const float* gp[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      hp[c] = in + min(kg + c * nkg, n_in - 1) * S;
+      gp[c] = g + min(rg + c * nrg, n_out - 1) * S;
+    }
+    float a[4][4], bs[4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      bs[c] = 0.0f;
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[c][e] = 0.0f;
+    }
+    for (int s = 0; s < B; s += 4) {
+      float4 hv[4], gv[4];
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        hv[c] = ld4(hp[c] + s);
+        gv[c] = ld4(gp[c] + s);
+      }
+#pragma unroll
+      for (int c = 0; c < 4; ++c)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          a[c][e] = fmaf(hv[c].x, gv[e].x, a[c][e]);
+          a[c][e] = fmaf(hv[c].y, gv[e].y, a[c][e]);
+          a[c][e] = fmaf(hv[c].z, gv[e].z, a[c][e]);
+          a[c][e] = fmaf(hv[c].w, gv[e].w, a[c][e]);
+        }
+      if (kg == 0) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) bs[e] = (((bs[e] + gv[e].x) + gv[e].y) + gv[e].z) + gv[e].w;
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = rg + e * nrg;
+      if (r >= n_out) continue;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int k = kg + c * nkg;
+        if (k < n_in) acc[w_off + k * ld + r * step] += a[c][e];
+      }
+      if (kg == 0) acc[b_off + r * step] += bs[e];
+    }
+  }
+}
+
+// The block's tiles, rows of S floats (above), and the weights' copies in
+// shared memory: Wh, a cell's hidden layers, and Wl, the last layer's
+// columns of one transformed dimension; each layer's rows padded to a
+// multiple of four floats, its bias a last row.
+struct BwdTile {
+  float *X, *XB, *H, *Z, *V, *Wh, *Wl;
+  int S;
+};
+
+// Floats of a hidden layer's padded copy (L: its descriptor entry).
+__device__ __forceinline__ int hidden_floats(const int* L) { return (L[0] + 1) * round4(L[1]); }
+
+// A padded copy of n_rows rows of ld floats into dst: row r < n_rows - 1 is
+// the flat weights' row at w_off + r * fan_out, the last row the bias at
+// b_off; column j < width is the flat layer's column col0 + j * step, the
+// rest 0.  Every thread of the block calls it; a barrier must follow.
+__device__ __forceinline__ void copy_layer(float* dst, const float* __restrict__ weights,
+                                           int n_rows, int ld, int width, int w_off, int b_off,
+                                           int fan_out, int col0, int step) {
+  for (int e = threadIdx.x; e < n_rows * ld; e += blockDim.x) {
+    const int r = e / ld, j = e - r * ld;
+    dst[e] = j < width ? __ldg(weights + (r < n_rows - 1 ? w_off + r * fan_out : b_off) + col0
+                               + j * step)
+                       : 0.0f;
+  }
+}
+
+// The outputs of a cell's hidden layers 0 .. count - 1 (L0: the first
+// layer's entry): the last hidden layer's into H, the others stacked in V,
+// each a block product from the one before (the first from X), with a
+// barrier after each.
+template <bool W_SMEM>
+__device__ __forceinline__ void hidden_forward(const int* L0, int n_hidden, int count,
+                                               const float* __restrict__ weights,
+                                               const BwdTile& tl) {
+  const float* in = tl.X;
+  int v_off = 0, w_off = 0;
+  for (int l = 0; l < count; ++l) {
+    const int* L = L0 + 5 * l;
+    const int fan_in = L[0], fan_out = L[1];
+    float* out = l == n_hidden - 1 ? tl.H : tl.V + v_off * tl.S;
+    if (W_SMEM) {
+      const int ld = round4(fan_out);
+      tile_dense<true>(tl.Wh + w_off, tl.Wh + w_off + fan_in * ld, ld, 1, fan_in, fan_out, in,
+                       out, tl.S, L[2]);
+      w_off += hidden_floats(L);
+    } else {
+      tile_dense<false>(weights + L[3], weights + L[4], fan_out, 1, fan_in, fan_out, in, out,
+                        tl.S, L[2]);
+    }
+    __syncthreads();
+    in = out;
+    v_off += fan_out;
+  }
+}
+
+// Backward through cell c, whose descriptor starts at D[p] and whose
+// logical dimension d is XB's row m[d].  Every thread of the block calls
+// it; valid is false for a lane past n, and jj is its sample's jbar * jac.
+template <int RT, bool W_SMEM>
+__device__ __forceinline__ void cell_bwd_tiled(const int* D, int p, const int* m, int c,
+                                               const float* __restrict__ weights,
+                                               const float* __restrict__ stage, long long n,
+                                               long long base, int nv, float jj, bool valid,
+                                               int n_flow, const BwdTile& tl,
+                                               float* __restrict__ acc) {
+  const int B = blockDim.x, S = tl.S, SG = B >> 2, t = threadIdx.x;
+  const int kind = D[p + 1], pt = D[p + 2], nb = D[p + 3], act = D[p + 4];
+  const int n_hidden = D[p + 5] - 1;
+  const int* L0 = D + p + 6;
+  const int* LL = L0 + 5 * n_hidden;  // the last layer
+  const int fin = LL[0], fout = LL[1];
+
+  __syncthreads();  // the last cell is done with X, Z, V and the weights
+  // the cell's input: a contiguous run of `stage` per row (a lane past n: 0.5)
+  for (int e = t; e < n_flow * B; e += B) {
+    const int d = e / B, s = e - d * B;
+    tl.X[d * S + s] = s < nv ? stage[((long long)c * n_flow + d) * n + base + s] : 0.5f;
+  }
+  if (W_SMEM) {
+    int w_off = 0;
+    for (int l = 0; l < n_hidden; ++l) {
+      const int* L = L0 + 5 * l;
+      copy_layer(tl.Wh + w_off, weights, L[0] + 1, round4(L[1]), L[1], L[3], L[4], L[1], 0, 1);
+      w_off += hidden_floats(L);
+    }
+  }
+  __syncthreads();
+  hidden_forward<W_SMEM>(L0, n_hidden, n_hidden, weights, tl);
+
+  // the last layer, one transformed dimension at a time; R, the cotangent
+  // of its input, stays in registers: the task t + q B of four rows by four
+  // samples is R[q]
+  const float* hin = n_hidden ? tl.H : tl.X;
+  const int t_dims = n_flow - pt, width = logit_width(kind, nb), ldw = round4(width);
+  const int step = kind == KIND_AFFINE ? t_dims : 1;
+  const int r_tasks = ((fin + 3) >> 2) * SG;
+  float R[RT][4][4];
+#pragma unroll
+  for (int q = 0; q < RT; ++q)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) R[q][i][e] = 0.0f;
+  for (int ti = 0; ti < t_dims; ++ti) {
+    const int col0 = kind == KIND_AFFINE ? ti : ti * width;
+    const float* wl = W_SMEM ? tl.Wl : weights + LL[3] + col0;
+    const int ld = W_SMEM ? ldw : fout, st = W_SMEM ? 1 : step;
+    __syncthreads();  // the last dimension's products are done with Z and Wl
+    if (W_SMEM) {
+      copy_layer(tl.Wl, weights, fin + 1, ldw, width, LL[3], LL[4], fout, col0, step);
+      __syncthreads();
+    }
+    // the logits, Z = W^T h + b
+    tile_dense<W_SMEM>(wl, W_SMEM ? tl.Wl + fin * ldw : weights + LL[4] + col0, ld, st, fin,
+                       width, hin, tl.Z, S, false);
+    __syncthreads();
+    {  // the VJP, a thread a sample: Z's column becomes the logits' cotangent
+      const TileCol zc{tl.Z + t, S}, sc{tl.V + t, S};
+      float* yb = tl.XB + m[pt + ti] * S + t;
+      const float x = tl.X[(pt + ti) * S + t];
+      float xb;
+      if (kind == KIND_PWQUAD) {
+        xb = pwquad_dim_vjp_col(zc, sc, nb, act, x, *yb, jj);
+      } else if (kind == KIND_PWLIN) {
+        xb = pwlin_dim_vjp_col(zc, sc, nb, act, x, *yb, jj);
+      } else {
+        xb = affine_dim_vjp_col(zc, x, *yb, jj);
+      }
+      *yb = xb;
+      if (!valid)
+        for (int k = 0; k < width; ++k) zc[k] = 0.0f;
+    }
+    __syncthreads();
+    // R += W Zbar; dW += h Zbar^T and db += Zbar into the block's row
+#pragma unroll
+    for (int q = 0; q < RT; ++q) {
+      const int task = t + q * B;
+      if (task < r_tasks) {
+        const int kg = task / SG;
+        tile_back<W_SMEM>(R[q], wl, ld, st, kg << 2, fin, width, tl.Z, S, (task - kg * SG) << 2);
+      }
+    }
+    tile_dw(hin, tl.Z, S, fin, width, acc, LL[3] + col0, LL[4] + col0, fout, step);
+  }
+  __syncthreads();  // the last dimension's products are done with Z
+
+  if (n_hidden == 0) {  // R is the pass-through dims' own: add it to their rows
+#pragma unroll
+    for (int q = 0; q < RT; ++q) {
+      const int task = t + q * B;
+      if (task >= r_tasks) continue;
+      const int kg = task / SG, k0 = kg << 2, s0 = (task - kg * SG) << 2;
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        if (k0 + i < fin)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tl.XB[m[k0 + i] * S + s0 + e] += R[q][i][e];
+    }
+    return;
+  }
+
+  // the last hidden layer's output cotangent: R through its ReLU, into Z
+  const int relu_top = LL[-3];
+#pragma unroll
+  for (int q = 0; q < RT; ++q) {
+    const int task = t + q * B;
+    if (task >= r_tasks) continue;
+    const int kg = task / SG, k0 = kg << 2, s0 = (task - kg * SG) << 2;
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      if (k0 + i >= fin) continue;
+      const float4 h = ld4(tl.H + (k0 + i) * S + s0);
+      float4 g = make_float4(R[q][i][0], R[q][i][1], R[q][i][2], R[q][i][3]);
+      if (relu_top) {
+        g.x = h.x > 0.0f ? g.x : 0.0f;
+        g.y = h.y > 0.0f ? g.y : 0.0f;
+        g.z = h.z > 0.0f ? g.z : 0.0f;
+        g.w = h.w > 0.0f ? g.w : 0.0f;
+      }
+      *reinterpret_cast<float4*>(tl.Z + (k0 + i) * S + s0) = g;
+    }
+  }
+  // the other hidden layers' outputs again, into V (the VJPs took it)
+  hidden_forward<W_SMEM>(L0, n_hidden, n_hidden - 1, weights, tl);
+  if (n_hidden == 1) __syncthreads();
+
+  // the hidden layers, last first: layer l's output cotangent G in one half
+  // of Z, its input's in the other
+  int half = 0, v_off = 0, w_off = 0;
+  for (int l = 0; l < n_hidden; ++l) {
+    half = max(half, L0[5 * l + 1]);
+    if (l < n_hidden - 1) v_off += L0[5 * l + 1];
+    w_off += hidden_floats(L0 + 5 * l);
+  }
+  int z_off = 0;
+  for (int l = n_hidden - 1; l >= 0; --l) {
+    const int* L = L0 + 5 * l;
+    const int fan_in = L[0], fan_out = L[1];
+    if (l > 0) v_off -= L[-4];  // the layer before's fan_out
+    w_off -= hidden_floats(L);
+    const float* in = l == 0 ? tl.X : tl.V + v_off * S;  // the layer's input
+    const float* g = tl.Z + z_off * S;
+    tile_dw(in, g, S, fan_in, fan_out, acc, L[3], L[4], fan_out, 1);
+    const float* w = W_SMEM ? tl.Wh + w_off : weights + L[3];
+    const int ld = W_SMEM ? round4(fan_out) : fan_out;
+    const int relu_in = l > 0 ? L[-3] : 0;  // the layer before's ReLU
+    const int z_next = z_off ? 0 : half;
+    const int tasks = ((fan_in + 3) >> 2) * SG;
+    for (int task = t; task < tasks; task += B) {
+      const int kg = task / SG, k0 = kg << 2, s0 = (task - kg * SG) << 2;
+      float a[4][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) a[i][e] = 0.0f;
+      tile_back<W_SMEM>(a, w, ld, 1, k0, fan_in, fan_out, g, S, s0);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        if (k0 + i >= fan_in) continue;
+        if (l == 0) {  // the pass-through dims: their own cotangent plus this
+#pragma unroll
+          for (int e = 0; e < 4; ++e) tl.XB[m[k0 + i] * S + s0 + e] += a[i][e];
+        } else {
+          const float4 h = ld4(in + (k0 + i) * S + s0);
+          float4 o = make_float4(a[i][0], a[i][1], a[i][2], a[i][3]);
+          if (relu_in) {
+            o.x = h.x > 0.0f ? o.x : 0.0f;
+            o.y = h.y > 0.0f ? o.y : 0.0f;
+            o.z = h.z > 0.0f ? o.z : 0.0f;
+            o.w = h.w > 0.0f ? o.w : 0.0f;
+          }
+          *reinterpret_cast<float4*>(tl.Z + (z_next + k0 + i) * S + s0) = o;
+        }
+      }
+    }
+    __syncthreads();
+    z_off = z_next;
+  }
+}
+
+// Whether the tiles and the weights' copies hold the plan, checked by thread
+// 0 before the walk: the table fits the descriptor; every last layer's
+// fan_in fits rt register tiles, its logits Z and its VJP scratch V; every
+// last hidden layer's output fits H, the other hidden outputs V and two
+// hidden cotangents Z; with w_smem, the copies fit Wh and Wl.
+__device__ __forceinline__ bool bwd_tiles_fit(const int* D, int desc_len, int tab_len,
+                                              const int* cell_pos, int n_cells, int n_flow,
+                                              int rt, bool w_smem, int h_rows, int z_rows,
+                                              int v_rows, int wh_floats, int wl_floats) {
+  if (D[0] != n_flow || tab_len != 1 + n_cells + (n_cells + 1) * n_flow) return false;
+  for (int c = 0; c < n_cells; ++c) {
+    const int p = cell_pos[c];
+    if (p < 2 || p + 6 > desc_len || D[p] != OP_CELL) return false;
+    const int kind = D[p + 1], pt = D[p + 2], nb = D[p + 3], n_layers = D[p + 5];
+    if (n_layers < 1 || p + 6 + 5 * n_layers > desc_len) return false;
+    const int* LL = D + p + 6 + 5 * (n_layers - 1);
+    const int width = logit_width(kind, nb);
+    const int scratch = kind == KIND_PWQUAD ? width : (kind == KIND_PWLIN ? nb : 0);
+    bool bad = LL[0] > 16 * rt || LL[1] != (n_flow - pt) * width || width > z_rows
+               || scratch > v_rows || (w_smem && (LL[0] + 1) * round4(width) > wl_floats)
+               || (n_layers == 1 && LL[0] != pt);
+    int half = 0, stacked = 0, wh = 0;
+    for (int l = 0; l < n_layers - 1; ++l) {
+      const int* L = D + p + 6 + 5 * l;
+      half = max(half, L[1]);
+      stacked += l < n_layers - 2 ? L[1] : 0;
+      wh += hidden_floats(L);
+    }
+    if (n_layers > 1)
+      bad |= LL[0] > h_rows || stacked > v_rows || (n_layers > 2 ? 2 : 1) * half > z_rows
+             || (w_smem && wh > wh_floats);
+    if (bad) return false;
+  }
+  return true;
+}
+
+// tab is the forward's row table (pwquad_train.fwd_table): the cells'
+// positions and each cell's row map, which XB keeps.  W_SMEM: each cell's
+// hidden weights, and each dimension's columns of its last layer in turn,
+// are copied into shared memory; otherwise every thread reads them through
+// L1.  RT: R's register tiles a thread.
+template <int RT, bool W_SMEM>
+__global__ void __launch_bounds__(BWD_TILED_MAX_BLOCK, BWD_TILED_MIN_BLOCKS(RT))
+train_bwd_tiled_kernel(const int* __restrict__ desc, int desc_len, const int* __restrict__ tab,
+                       int tab_len, const float* __restrict__ weights, int n_weights,
+                       const float* __restrict__ stage, const float* __restrict__ jac_in,
+                       const float* __restrict__ jbar_in, const float* __restrict__ xbar0,
+                       float* __restrict__ grad_partial, float* __restrict__ wbar, long long n,
+                       int n_flow, int h_rows, int z_rows, int v_rows, int wh_floats,
+                       int wl_floats) {
+  extern __shared__ float4 smem_f4[];
+  const int B = blockDim.x, S = B + 4, t = threadIdx.x;
+  // the dW accumulator [n_weights]: the block's own row of grad_partial
+  float* acc = grad_partial + (long long)blockIdx.x * n_weights;
+  int* D = reinterpret_cast<int*>(smem_f4);
+  int* T = D + desc_len;
+  BwdTile tl;
+  tl.S = S;
+  tl.Wh = reinterpret_cast<float*>(smem_f4) + round4(desc_len + tab_len);
+  tl.Wl = tl.Wh + (W_SMEM ? wh_floats : 0);
+  tl.X = tl.Wl + (W_SMEM ? wl_floats : 0);
+  tl.XB = tl.X + n_flow * S;
+  tl.H = tl.XB + n_flow * S;
+  tl.Z = tl.H + h_rows * S;
+  tl.V = tl.Z + z_rows * S;
+  for (int i = t; i < desc_len; i += B) D[i] = desc[i];
+  for (int i = t; i < tab_len; i += B) T[i] = tab[i];
+  for (int i = t; i < n_weights; i += B) acc[i] = 0.0f;
+  __syncthreads();
+  const int n_cells = T[0];
+  const int* cell_pos = T + 1;
+  const int* maps = T + 1 + n_cells;
+  const int* map_end = maps + n_cells * n_flow;
+  if (t == 0 && !bwd_tiles_fit(D, desc_len, tab_len, cell_pos, n_cells, n_flow, RT, W_SMEM,
+                               h_rows, z_rows, v_rows, wh_floats, wl_floats))
+    __trap();
+
+  const long long stride = (long long)gridDim.x * B;
+  for (long long base = (long long)blockIdx.x * B; base < n; base += stride) {
+    const int nv = (int)min((long long)B, n - base);
+    const bool valid = t < nv;
+    const long long i = base + t;
+    __syncthreads();  // the last tile's latent cotangents are read out of XB
+    // the tile's output cotangents, one contiguous run, into the forward's
+    // rows of the flow's end (a lane past n: 0)
+    for (int e = t; e < B * n_flow; e += B) {
+      const int s = e / n_flow;
+      tl.XB[map_end[e - s * n_flow] * S + s] = s < nv ? xbar0[base * n_flow + e] : 0.0f;
+    }
+    const float jj = valid ? jbar_in[i] * jac_in[i] : 0.0f;
+    for (int c = n_cells - 1; c >= 0; --c)
+      cell_bwd_tiled<RT, W_SMEM>(D, cell_pos[c], maps + c * n_flow, c, weights, stage, n, base,
+                                 nv, jj, valid, n_flow, tl, acc);
+    __syncthreads();
+    // the latents' cotangents: the forward's first rows are the latents'
+    for (int e = t; e < nv * n_flow; e += B) {
+      const int s = e / n_flow;
+      wbar[base * n_flow + e] = tl.XB[(e - s * n_flow) * S + s];
+    }
+  }
+}
+
 static int set_smem(const void* kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -1027,10 +1665,26 @@ static int launch_bwd(int n_blocks, int block, size_t smem, cudaStream_t stream,
   return (int)cudaGetLastError();
 }
 
+template <int RT, bool W_SMEM>
+static int launch_bwd_tiled(int n_blocks, int block, size_t smem, cudaStream_t stream,
+                            const int* desc, int desc_len, const int* tab, int tab_len,
+                            const float* weights, int n_weights, const float* stage,
+                            const float* jac, const float* jbar, const float* xbar0,
+                            float* grad_partial, float* wbar, long long n, int n_flow,
+                            const int* rows) {
+  const int e = set_smem((const void*)train_bwd_tiled_kernel<RT, W_SMEM>, smem);
+  if (e) return e;
+  train_bwd_tiled_kernel<RT, W_SMEM><<<n_blocks, block, smem, stream>>>(
+      desc, desc_len, tab, tab_len, weights, n_weights, stage, jac, jbar, xbar0, grad_partial,
+      wbar, n, n_flow, rows[0], rows[1], rows[2], rows[3], rows[4]);
+  return (int)cudaGetLastError();
+}
+
 extern "C" {
 
-// The backward's local-array sizes and the launch shapes, so the wrapper
-// can check its copy.
+// The per-thread backward's local-array sizes, the tiled backward's
+// limits, the launch shapes and the tiled backward's blocks an SM by
+// registers, so the wrapper can check its copy.
 int nf_pwquad_train_limits(int* out) {
   out[0] = MAX_FLOW;
   out[1] = MAX_HIDDEN;
@@ -1038,7 +1692,36 @@ int nf_pwquad_train_limits(int* out) {
   out[3] = MAX_ACTS;
   out[4] = FWD_MAX_BLOCK;
   out[5] = BWD_MAX_BLOCK;
+  out[6] = BWD_TILED_MAX_FIN;
+  out[7] = BWD_TILED_MAX_BLOCK;
+  out[8] = BWD_TILED_MIN_BLOCKS(1);
+  out[9] = BWD_TILED_MIN_BLOCKS(2);
+  out[10] = BWD_TILED_MIN_BLOCKS(4);
   return 0;
+}
+
+// Blocks of the tiled backward (rt register tiles, weights' copies in
+// shared memory if w_smem) of `block` threads and `smem` bytes an SM holds,
+// by the CUDA occupancy calculator, into *out; returns the CUDA error.
+int nf_pwquad_train_bwd_tiled_occupancy(int rt, int w_smem, int block, long long smem,
+                                        int* out) {
+#define NF_BWD_OCC(RT_, W_)                                                                   \
+  {                                                                                           \
+    const void* k = (const void*)train_bwd_tiled_kernel<RT_, W_>;                             \
+    const int e = set_smem(k, (size_t)smem);                                                  \
+    return e ? e : (int)cudaOccupancyMaxActiveBlocksPerMultiprocessor(out, k, block,          \
+                                                                      (size_t)smem);          \
+  }
+  if (rt != 1 && rt != 2 && rt != 4) return (int)cudaErrorInvalidValue;
+  if (w_smem) {
+    if (rt == 1) NF_BWD_OCC(1, true);
+    if (rt == 2) NF_BWD_OCC(2, true);
+    NF_BWD_OCC(4, true);
+  }
+  if (rt == 1) NF_BWD_OCC(1, false);
+  if (rt == 2) NF_BWD_OCC(2, false);
+  NF_BWD_OCC(4, false);
+#undef NF_BWD_OCC
 }
 
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
@@ -1137,6 +1820,47 @@ int nf_pwquad_train_bwd(const int* desc, int desc_len, const float* weights,
   return launch_bwd<false, false>(n_blocks, block, need, s, desc, desc_len, weights, n_weights,
                                   stage, jac, jbar, xbar0, grad_partial, wbar, n, n_ops,
                                   h_rows, g_rows, nullptr, sz);
+}
+
+// The tiled backward: stage, jac [n], jbar [n], xbar0 [n, n_flow] ->
+// grad_partial [n_blocks, n_weights] (summed over blocks by the caller) and
+// wbar [n, n_flow], in blocks of `block` threads (a multiple of 32, at most
+// BWD_TILED_MAX_BLOCK), each a tile of `block` samples.  tab is the
+// forward's row table (pwquad_train.fwd_table); rt the register tiles of R
+// a thread (1, 2 or 4); rows = (h_rows, z_rows, v_rows, wh_floats,
+// wl_floats), the tiles' rows and the weights' copies
+// (pwquad_train.train_bwd_tiles), the copies in shared memory if w_smem is
+// non-zero; smem the block's bytes as the wrapper computed them
+// (pwquad_train.train_bwd_smem_bytes).  A mismatch is refused.
+int nf_pwquad_train_bwd_tiled(const int* desc, int desc_len, const int* tab, int tab_len,
+                              const float* weights, int n_weights, const float* stage,
+                              const float* jac, const float* jbar, const float* xbar0,
+                              float* grad_partial, float* wbar, long long n, int n_flow,
+                              int n_blocks, int block, int w_smem, int rt, const int* rows,
+                              long long smem, void* stream) {
+  if (n <= 0) return 0;
+  const size_t need = sizeof(float) * ((((size_t)desc_len + tab_len + 3) & ~(size_t)3)
+                                       + (w_smem ? (size_t)rows[3] + rows[4] : 0)
+                                       + (size_t)(2 * n_flow + rows[0] + rows[1] + rows[2])
+                                             * (block + 4));
+  if ((size_t)smem != need || block % 32 || block < 32 || block > BWD_TILED_MAX_BLOCK
+      || n_flow < 1 || rows[0] < 0 || rows[1] < 1 || rows[2] < 0 || rows[3] < 0 || rows[4] < 0
+      || rows[3] % 4 || rows[4] % 4 || (rt != 1 && rt != 2 && rt != 4))
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define NF_BWD_TILED(RT_, W_)                                                                    \
+  return launch_bwd_tiled<RT_, W_>(n_blocks, block, need, s, desc, desc_len, tab, tab_len,      \
+                                   weights, n_weights, stage, jac, jbar, xbar0, grad_partial,   \
+                                   wbar, n, n_flow, rows)
+  if (w_smem) {
+    if (rt == 1) NF_BWD_TILED(1, true);
+    if (rt == 2) NF_BWD_TILED(2, true);
+    NF_BWD_TILED(4, true);
+  }
+  if (rt == 1) NF_BWD_TILED(1, false);
+  if (rt == 2) NF_BWD_TILED(2, false);
+  NF_BWD_TILED(4, false);
+#undef NF_BWD_TILED
 }
 
 }  // extern "C"

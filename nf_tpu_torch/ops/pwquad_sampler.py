@@ -53,13 +53,14 @@ SAMPLER_MAX_THREADS = 1 << 20
 SMALL_BLOCKS = (64, 32)
 
 # An H100's shared memory per block and per SM, what the runtime reserves
-# per block, and an SM's threads and blocks (CUDA C++ Programming Guide,
-# compute capability 9.0).
+# per block, an SM's threads and blocks (CUDA C++ Programming Guide,
+# compute capability 9.0), and the SMs of an H100 SXM.
 SMEM_LIMIT = 232448
 SM_SMEM = 233472
 SMEM_PER_BLOCK_RESERVED = 1024
 SM_THREADS = 2048
 SM_BLOCKS = 32
+SM_COUNT = 132
 
 OP_PERM, OP_CELL = 0, 1
 KIND = {"pwquad": 0, "pwlin": 1, "affine": 2}
@@ -248,14 +249,16 @@ def padded_weights(flow, shapes):
     return total
 
 
-def blocks_per_sm(smem, block):
+def blocks_per_sm(smem, block, sm_threads=SM_THREADS):
     """Blocks of ``block`` threads and ``smem`` bytes of shared memory that
-    one H100 SM holds at once, by shared memory, threads and its block limit
-    (registers are not counted: ptxas reports them on the card)."""
-    return min(SM_SMEM // (smem + SMEM_PER_BLOCK_RESERVED), SM_THREADS // block, SM_BLOCKS)
+    one H100 SM holds at once, by shared memory, threads and its block limit.
+    ``sm_threads`` is the most threads the kernel's registers leave
+    resident; by default the SM's thread limit, which counts no registers
+    (ptxas reports them on the card)."""
+    return min(SM_SMEM // (smem + SMEM_PER_BLOCK_RESERVED), sm_threads // block, SM_BLOCKS)
 
 
-def best_launch(blocks, smem_bytes, smem_first=False, what="kernel"):
+def best_launch(blocks, smem_bytes, smem_first=False, what="kernel", sm_threads=SM_THREADS):
     """Of the block sizes ``blocks``, with the weights in shared memory or
     read through L1, the launch ``(block, w_smem)`` that keeps the most
     threads resident on an SM while at least two blocks share it (so that
@@ -266,16 +269,16 @@ def best_launch(blocks, smem_bytes, smem_first=False, what="kernel"):
     memory; only launches that fit it are candidates.  Where none of
     ``blocks`` fits, :data:`SMALL_BLOCKS` are
     tried by the same rule; where none of those fits either, raises
-    ``ValueError``."""
+    ``ValueError``.  ``sm_threads``: as for :func:`blocks_per_sm`."""
     def rank(config):
         block, w_smem = config
-        k = blocks_per_sm(smem_bytes(block, w_smem), block)
+        k = blocks_per_sm(smem_bytes(block, w_smem), block, sm_threads)
         return (k >= 2, w_smem, k * block, block) if smem_first else \
             (k >= 2, k * block, w_smem, block)
 
     for sizes in (blocks, SMALL_BLOCKS):
         configs = [(b, w) for b in sizes for w in (True, False)
-                   if blocks_per_sm(smem_bytes(b, w), b) >= 1]
+                   if blocks_per_sm(smem_bytes(b, w), b, sm_threads) >= 1]
         if configs:
             return max(configs, key=rank)
     raise ValueError(f"{what}: no launch fits the plan; at {SMALL_BLOCKS[-1]} threads a "

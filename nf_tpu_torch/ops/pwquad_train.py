@@ -23,10 +23,13 @@ its hand-derived backward then run as two CUDA kernels
   * :class:`TrainPlan` (the descriptor and the forward's row table, built
     once per flow), each kernel's launch layout, counted here and checked
     by its C entry point (:func:`train_fwd_smem_bytes`,
-    :func:`train_bwd_smem_bytes`), and its launch chosen per plan
-    (:func:`train_fwd_config`, :func:`train_bwd_config`); the wrappers
+    :func:`train_bwd_smem_bytes`, :func:`train_bwd_thread_smem_bytes`), and
+    its kernel and launch chosen per plan (:func:`train_fwd_config`,
+    :func:`bwd_kernel_for`, :func:`train_bwd_config`,
+    :func:`train_bwd_thread_config`); the wrappers
     :func:`train_forward` / :func:`train_backward` with their launch counts
-    ``FWD_LAUNCHES`` / ``BWD_LAUNCHES``, and :class:`FusedTrain`, the
+    ``FWD_LAUNCHES`` / ``BWD_LAUNCHES`` (``BWD_TILED_LAUNCHES`` the tiled
+    backward's alone), and :class:`FusedTrain`, the
     ``torch.autograd.Function`` that joins them;
   * :func:`stats_to_bn_state`: the running-statistics refresh from the
     forward's batch sums.
@@ -46,29 +49,54 @@ from nf_tpu_torch.bijectors import coupling
 from nf_tpu_torch.bijectors.batchnorm import EPS, MOMENTUM
 from nf_tpu_torch.flows.fast_eval import apply_folded, permutation_index
 from nf_tpu_torch.flows.model import permutation_source
-from nf_tpu_torch.ops.pwquad_sampler import (SMALL_BLOCKS, SMEM_LIMIT, best_launch,  # noqa: F401
-                                             blocks_per_sm, layer_shapes, logit_width,
+from nf_tpu_torch.ops.pwquad_sampler import (SM_COUNT, SMALL_BLOCKS, SMEM_LIMIT,  # noqa: F401
+                                             best_launch, blocks_per_sm, layer_shapes,
+                                             logit_width,
                                              op_table, padded_weights as _padded_weights,
                                              plan_descriptor, round4, tile_rows)
 
-# Launches of the CUDA kernels since import (or since a caller reset them).
+# Launches of the CUDA kernels since import (or since a caller reset them):
+# the forward, the backward (either kernel), and the tiled backward alone.
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_TILED_LAUNCHES = 0
 
 # Launch shape compiled into csrc/pwquad_train.cu.
 FWD_MAX_BLOCK = 512    # threads (samples) per block of the forward
-BWD_MAX_BLOCK = 512    # threads (samples) per block of the backward
-# The launches' block sizes (train_fwd_config and train_bwd_config pick from
-# them, then from SMALL_BLOCKS where none fits) and the most threads of each
-# kernel's grid.
+BWD_MAX_BLOCK = 512    # threads (samples) per block of the per-thread backward
+BWD_TILED_MAX_BLOCK = 128  # threads (samples) per block of the tiled backward
+# The launches' block sizes (train_fwd_config, train_bwd_config and
+# train_bwd_thread_config pick from them, then from SMALL_BLOCKS where none
+# fits) and the most threads of the forward's and the per-thread backward's
+# grids.
 FWD_BLOCKS = (128, 256, 512)
+BWD_TILED_BLOCKS = (128, 64)
 BWD_BLOCKS = (128, 256, 512)
 FWD_MAX_THREADS = 1 << 20
 BWD_MAX_THREADS = 1 << 17
-# The backward's per-thread arrays are local arrays of these sizes (latent
-# dims, a layer's fan_in, bins, a cell's layer inputs in all); a plan beyond
-# any of them runs the workspace kernel (train_bwd_workspace).
+# The per-thread backward's arrays are local arrays of these sizes (latent
+# dims, a layer's fan_in, bins, a cell's layer inputs in all); beyond any of
+# them they are slices of a device workspace.
 BWD_LOCAL_FLOW, BWD_LOCAL_HIDDEN, BWD_LOCAL_BINS, BWD_LOCAL_ACTS = 32, 64, 32, 256
+# The tiled backward keeps the cotangent of each last layer's input in
+# registers, 16 rows a register tile (train_bwd_microtile): a plan whose
+# last layer takes more inputs runs the workspace kernel.
+BWD_TILED_MAX_FIN = 64
+# Blocks of BWD_TILED_MAX_BLOCK threads an SM holds by the tiled backward's
+# registers, by its register tiles of R (1, 2 or 4): the minimum its
+# __launch_bounds__ asks of ptxas, which then caps a thread at 168
+# registers for three blocks and 255 for two.  ptxas gives 146-168 and
+# 208-210 (PERF.md section 6), more than a fourth or a third block leaves
+# (128 and 170), so the count is exact; a card test checks it against the
+# CUDA occupancy calculator.
+BWD_TILED_MIN_BLOCKS = {1: 3, 2: 3, 4: 2}
+# A plan whose layers (hidden outputs and last-layer inputs) are all
+# narrower than this runs the per-thread backward on its local arrays where
+# they hold it: its products are too small to pay for the tiled kernel's
+# barriers (on launches that count its registers, camel and the 10-D
+# flagship ran 2.3x and 1.18x slower tiled, the ZZ/Z' plan, 32 wide, 1.65x
+# faster; PERF.md section 6).
+BWD_TILED_MIN_WIDTH = 32
 
 
 # ---------------------------------------------------------------------------
@@ -253,10 +281,13 @@ class TrainPlan:
         self.fwd_tab = fwd_table(self)
         self.fwd_tiles = train_fwd_tiles(self)
         self.n_wpad = padded_weights(self)
+        self.bwd_tiles = train_bwd_tiles(self)
         self.bwd_sizes = bwd_array_sizes(self)
-        self.bwd_ws = train_bwd_workspace(self)
-        # {with_stats: train_fwd_config} and train_bwd_config, set with the
-        # descriptor
+        self.bwd_kernel = bwd_kernel_for(self)
+        self.bwd_ws = bwd_workspace_floats(self) if self.bwd_kernel == "workspace" else 0
+        # {with_stats: train_fwd_config} and the backward's launch (the tiled
+        # kernel's train_bwd_config, or train_bwd_thread_config), set with
+        # the descriptor
         self.fwd_config = None
         self.bwd_config = None
 
@@ -267,7 +298,8 @@ class TrainPlan:
         if device not in self._desc:
             desc, _ = plan_descriptor(self.flow, self.meta)
             self.fwd_config = {stats: train_fwd_config(self, stats) for stats in (False, True)}
-            self.bwd_config = train_bwd_config(self)
+            self.bwd_config = train_bwd_config(self) if self.bwd_kernel == "tiled" else \
+                train_bwd_thread_config(self)
             self._desc[device] = torch.as_tensor(desc, device=device)
             self._tab[device] = torch.as_tensor(self.fwd_tab, device=device)
         return self._desc[device]
@@ -322,32 +354,45 @@ def train_fwd_smem_bytes(plan, block, w_smem=True, stats=False):
 
 
 def train_bwd_tiles(plan):
-    """``(h_rows, g_rows)``: the rows of the backward kernel's two shared
-    tiles.  H holds a layer's input and a row of ones (the bias); G the
-    cotangent of a hidden layer's output, or of one transformed dimension's
-    logits of the last layer (``2 n_bins + 1`` for pwquad, ``n_bins`` for
-    pwlin, 2 for affine), which is streamed one dimension at a time."""
-    h_rows = g_rows = 1
+    """``(h_rows, z_rows, v_rows, wh_floats, wl_floats)``: the tiled
+    backward's tiles beside X and XB (``n_flow`` rows each) and its weights'
+    copies in shared memory.  H holds a last hidden layer's output; Z one
+    transformed dimension's logits (``2 n_bins + 1`` for pwquad, ``n_bins``
+    for pwlin, 2 for affine), then the hidden layers' output cotangents, two
+    at a time where a cell has two hidden layers or more; V the VJP's
+    scratch column (pwquad's logits, pwlin's bins), then the hidden outputs
+    before the last.  Wh holds a cell's hidden layers, Wl the last layer's
+    columns of one transformed dimension, each row padded to a multiple of
+    four floats and the bias a last row."""
+    h_rows = v_rows = wh = wl = 0
+    z_rows = 1
     for cfg, shapes in zip(plan.flow.cells, plan.meta):
         width = logit_width(cfg)
-        for li, (fan_in, fan_out, _) in enumerate(shapes):
-            h_rows = max(h_rows, fan_in + 1)
-            g_rows = max(g_rows, fan_out if li < len(shapes) - 1 else width)
-    return h_rows, g_rows
+        hidden, (fin, _, _) = shapes[:-1], shapes[-1]
+        z_rows = max(z_rows, width)
+        v_rows = max(v_rows, {"pwquad": width, "pwlin": cfg.n_bins, "affine": 0}[cfg.kind])
+        wl = max(wl, (fin + 1) * round4(width))
+        if hidden:
+            h_rows = max(h_rows, fin)
+            half = max(fo for _, fo, _ in hidden)
+            z_rows = max(z_rows, (2 if len(hidden) > 1 else 1) * half)
+            v_rows = max(v_rows, sum(fo for _, fo, _ in hidden[:-1]))
+            wh = max(wh, sum((fi + 1) * round4(fo) for fi, fo, _ in hidden))
+    return h_rows, z_rows, v_rows, wh, wl
 
 
 def train_bwd_smem_bytes(plan, block, w_smem=True):
-    """Shared memory of one backward block of ``block`` threads: with
-    ``w_smem`` the weights (``n_weights`` floats), the descriptor with each
-    op's position and the cell count, the H and G tiles (a row of
-    ``block + 1`` floats per feature) and the block product's partial sums
-    (4 per thread).  The weight-gradient accumulator is the block's own row
-    of the partial-gradient scratch in device memory, so the plan's width
-    takes no shared memory beyond the weights.  ``nf_pwquad_train_bwd``
-    refuses a launch whose count differs from its own."""
-    h_rows, g_rows = train_bwd_tiles(plan)
-    return 4 * ((plan.n_weights if w_smem else 0) + plan.desc_len
-                + len(plan.flow.ops) + 1 + (h_rows + g_rows) * (block + 1) + 4 * block)
+    """Shared memory of one tiled backward block of ``block`` threads (a
+    tile of ``block`` samples): the descriptor and :func:`fwd_table`
+    (padded to four int32s); with ``w_smem`` the weights' copies (Wh and
+    Wl, :func:`train_bwd_tiles`); and the X, XB, H, Z and V tiles, a row of
+    ``block + 4`` floats per feature.  The weight-gradient accumulator is
+    the block's own row of the partial-gradient scratch in device memory.
+    ``nf_pwquad_train_bwd_tiled`` refuses a launch whose count differs from
+    its own."""
+    h_rows, z_rows, v_rows, wh, wl = plan.bwd_tiles
+    return 4 * (round4(plan.desc_len + plan.fwd_tab.size) + (wh + wl if w_smem else 0)
+                + (2 * plan.flow.n_flow + h_rows + z_rows + v_rows) * (block + 4))
 
 
 def train_fwd_config(plan, stats=False):
@@ -361,18 +406,91 @@ def train_fwd_config(plan, stats=False):
                        smem_first=True, what="training forward")
 
 
+def train_bwd_microtile(plan):
+    """The tiled backward's register tiles of the cotangent of a last
+    layer's input a thread keeps across the transformed dimensions (every
+    product's tile is four rows by four samples): 1, 2 or 4, the fewest
+    whose 16 rows each hold the widest last layer's fan_in, a function of
+    the plan's widths alone; ``None`` where that fan_in exceeds
+    :data:`BWD_TILED_MAX_FIN`."""
+    fin = max(m[-1][0] for m in plan.meta)
+    return next((r for r in (1, 2, 4) if fin <= 16 * r), None)
+
+
+def bwd_tiled_sm_threads(plan):
+    """Threads of the tiled backward an SM holds by its registers on
+    ``plan`` (:data:`BWD_TILED_MIN_BLOCKS`)."""
+    return BWD_TILED_MIN_BLOCKS[train_bwd_microtile(plan)] * BWD_TILED_MAX_BLOCK
+
+
 def train_bwd_config(plan):
-    """``(block, w_smem)`` of the backward for ``plan``, by
+    """``(block, w_smem)`` of the tiled backward for ``plan``, by
+    :func:`~nf_tpu_torch.ops.pwquad_sampler.best_launch` over
+    :data:`BWD_TILED_BLOCKS`, with the blocks its registers leave resident
+    (:func:`bwd_tiled_sm_threads`): the most threads resident with at least
+    two blocks an SM, then the weights' copies in shared memory (one float4
+    of a copy feeds four FMAs of a logit product, against four loads through
+    L1).  Raises ``ValueError`` where a last layer's fan_in exceeds
+    :data:`BWD_TILED_MAX_FIN` or no tiled launch fits."""
+    if train_bwd_microtile(plan) is None:
+        raise ValueError(f"tiled training backward: a last layer's fan_in exceeds "
+                         f"{BWD_TILED_MAX_FIN}")
+    return best_launch(BWD_TILED_BLOCKS, lambda b, w: train_bwd_smem_bytes(plan, b, w),
+                       what="tiled training backward", sm_threads=bwd_tiled_sm_threads(plan))
+
+
+def bwd_blocks(plan, n, block, w_smem):
+    """The tiled backward's grid for ``n`` samples of ``plan`` in blocks of
+    ``block``, the weights' copies in shared memory if ``w_smem``: a block
+    per tile, at most one per resident slot of the card (:func:`blocks_per_sm`
+    by shared memory and registers, x :data:`SM_COUNT`), each block then
+    walking several tiles."""
+    smem = train_bwd_smem_bytes(plan, block, w_smem)
+    return min(-(-n // block), blocks_per_sm(smem, block, bwd_tiled_sm_threads(plan)) * SM_COUNT)
+
+
+def train_bwd_thread_tiles(plan):
+    """``(h_rows, g_rows)``: the rows of the per-thread backward's two shared
+    tiles (its arrays local or in the workspace alike).  H holds a layer's
+    input and a row of ones (the bias); G the cotangent of a hidden layer's
+    output, or of one transformed dimension's logits of the last layer
+    (``2 n_bins + 1`` for pwquad, ``n_bins`` for pwlin, 2 for affine), which
+    is streamed one dimension at a time."""
+    h_rows = g_rows = 1
+    for cfg, shapes in zip(plan.flow.cells, plan.meta):
+        width = logit_width(cfg)
+        for li, (fan_in, fan_out, _) in enumerate(shapes):
+            h_rows = max(h_rows, fan_in + 1)
+            g_rows = max(g_rows, fan_out if li < len(shapes) - 1 else width)
+    return h_rows, g_rows
+
+
+def train_bwd_thread_smem_bytes(plan, block, w_smem=True):
+    """Shared memory of one per-thread backward block of ``block`` threads:
+    with ``w_smem`` the weights (``n_weights`` floats), the descriptor with
+    each op's position and the cell count, the H and G tiles (a row of
+    ``block + 1`` floats per feature) and the block product's partial sums
+    (4 per thread).  The weight-gradient accumulator is the block's own row
+    of the partial-gradient scratch in device memory, so the plan's width
+    takes no shared memory beyond the weights.  ``nf_pwquad_train_bwd``
+    refuses a launch whose count differs from its own."""
+    h_rows, g_rows = train_bwd_thread_tiles(plan)
+    return 4 * ((plan.n_weights if w_smem else 0) + plan.desc_len
+                + len(plan.flow.ops) + 1 + (h_rows + g_rows) * (block + 1) + 4 * block)
+
+
+def train_bwd_thread_config(plan):
+    """``(block, w_smem)`` of the per-thread backward for ``plan``, by
     :func:`~nf_tpu_torch.ops.pwquad_sampler.best_launch` over
     :data:`BWD_BLOCKS` (with the weights in shared memory, L1 is left to the
     per-thread arrays)."""
-    return best_launch(BWD_BLOCKS, lambda b, w: train_bwd_smem_bytes(plan, b, w),
+    return best_launch(BWD_BLOCKS, lambda b, w: train_bwd_thread_smem_bytes(plan, b, w),
                        what="training backward")
 
 
 def bwd_array_sizes(plan):
-    """``(acts, hidden, width, bins)``: the backward's per-thread arrays
-    for ``plan``: a cell's layer inputs in all, a layer's fan_in, one
+    """``(acts, hidden, width, bins)``: the per-thread backward's arrays for
+    ``plan``: a cell's layer inputs in all, a layer's fan_in, one
     transformed dimension's logits, a pwquad or pwlin cell's bins."""
     return (max(sum(fi for fi, _, _ in m) for m in plan.meta),
             max(fi for m in plan.meta for fi, _, _ in m),
@@ -390,14 +508,25 @@ def bwd_workspace_floats(plan):
     return 3 * plan.flow.n_flow + acts + 2 * hidden + 2 * width + 5 * bins + 3
 
 
-def train_bwd_workspace(plan):
-    """:func:`bwd_workspace_floats` where ``plan`` is beyond the backward's
-    local arrays (:data:`BWD_LOCAL_FLOW` and the rest), else 0."""
+def bwd_kernel_for(plan):
+    """The backward kernel that runs ``plan``, by the plan's widths:
+    ``"local"`` (the per-thread kernel on local arrays) where every layer is
+    narrower than :data:`BWD_TILED_MIN_WIDTH` and the local arrays hold the
+    plan (:data:`BWD_LOCAL_FLOW` and the rest); else ``"tiled"`` where the
+    tiled kernel takes it (:func:`train_bwd_config`); else ``"local"`` where
+    the local arrays hold it; else ``"workspace"``."""
     acts, hidden, _, bins = plan.bwd_sizes
-    if (plan.flow.n_flow <= BWD_LOCAL_FLOW and acts <= BWD_LOCAL_ACTS
-            and hidden <= BWD_LOCAL_HIDDEN and bins <= BWD_LOCAL_BINS):
-        return 0
-    return bwd_workspace_floats(plan)
+    local = (plan.flow.n_flow <= BWD_LOCAL_FLOW and acts <= BWD_LOCAL_ACTS
+             and hidden <= BWD_LOCAL_HIDDEN and bins <= BWD_LOCAL_BINS)
+    widest = max(fo if li < len(m) - 1 else fi
+                 for m in plan.meta for li, (fi, fo, _) in enumerate(m))
+    if local and widest < BWD_TILED_MIN_WIDTH:
+        return "local"
+    try:
+        train_bwd_config(plan)
+        return "tiled"
+    except ValueError:
+        return "local" if local else "workspace"
 
 
 def _check(plan, flat, tensors):
@@ -482,10 +611,12 @@ def train_backward(plan, flat, stage, jac, jbar, xbar, latents=None, config=None
     """``(dflat [n_weights], wbar [n, n_flow])``: the gradient of
     :func:`train_forward`'s ``(x, jac)`` for the cotangents ``(xbar, jbar)``
     with respect to the flat folded weights and the latents.  One launch of
-    the backward kernel on CUDA tensors, which reads ``stage`` and ``jac``,
-    with ``config = (block, w_smem)`` (default :func:`train_bwd_config`) and
-    its per-thread arrays in a device workspace where ``workspace`` (default:
-    where the plan needs it, :func:`train_bwd_workspace`);
+    a backward kernel on CUDA tensors, which reads ``stage`` and ``jac``:
+    the plan's (:func:`bwd_kernel_for`: tiled, or per thread on local
+    arrays or in a workspace), or the per-thread kernel on a workspace where
+    ``workspace``, with ``config = (block, w_smem)`` (default
+    :func:`train_bwd_config` for the tiled kernel,
+    :func:`train_bwd_thread_config` for the per-thread one);
     :func:`folded_backward_ref` on CPU tensors, which recomputes from
     ``latents``."""
     n_flow = plan.flow.n_flow
@@ -498,11 +629,54 @@ def train_backward(plan, flat, stage, jac, jbar, xbar, latents=None, config=None
         _check(plan, flat, [("latents", latents, (n, n_flow))])
         return folded_backward_ref(plan.flow, flat, latents, xbar, jbar)
     _check(plan, flat, [("stage", stage, (len(plan.flow.cells), n_flow, n))])
-    return _launch_bwd(plan, flat, stage, jac, jbar, xbar, config, workspace)
+    if workspace is not None and not workspace and plan.bwd_ws:
+        raise ValueError("training backward: the plan is beyond the local arrays and the "
+                         "tiled kernel (bwd_kernel_for); it needs the workspace")
+    if workspace or plan.bwd_kernel != "tiled":
+        return _launch_bwd_thread(plan, flat, stage, jac, jbar, xbar, config,
+                                  workspace or plan.bwd_kernel == "workspace")
+    return _launch_bwd_tiled(plan, flat, stage, jac, jbar, xbar, config)
 
 
-def _launch_bwd(plan, flat, stage, jac, jbar, xbar, config, workspace):
-    """One launch of the backward kernel on the current stream."""
+def _launch_bwd_tiled(plan, flat, stage, jac, jbar, xbar, config):
+    """One launch of the tiled backward kernel on the current stream."""
+    global BWD_LAUNCHES, BWD_TILED_LAUNCHES
+    from nf_tpu_torch.ops import _build
+
+    lib = _build.library()
+    n_flow = plan.flow.n_flow
+    n = jac.shape[0]
+    device = flat.device
+    desc = plan.descriptor(device)
+    tab = plan.table(device)
+    block, w_smem = config or plan.bwd_config
+    if block not in BWD_TILED_BLOCKS + SMALL_BLOCKS:
+        raise ValueError(f"tiled backward block {block} not in "
+                         f"{BWD_TILED_BLOCKS + SMALL_BLOCKS}")
+    smem = train_bwd_smem_bytes(plan, block, w_smem)
+    n_blocks = bwd_blocks(plan, n, block, w_smem)
+    partial = torch.empty((n_blocks, plan.n_weights), dtype=torch.float32, device=device)
+    wbar = torch.empty((n, n_flow), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        err = lib.nf_pwquad_train_bwd_tiled(
+            desc.data_ptr(), desc.numel(), tab.data_ptr(), tab.numel(), flat.data_ptr(),
+            flat.numel(), stage.data_ptr(), jac.data_ptr(), jbar.data_ptr(), xbar.data_ptr(),
+            partial.data_ptr(), wbar.data_ptr(), n, n_flow, n_blocks, block, int(w_smem),
+            train_bwd_microtile(plan), (ctypes.c_int * 5)(*plan.bwd_tiles), smem,
+            torch.cuda.current_stream(device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"pwquad_train backward kernel launch failed: "
+                           f"{_build.error_string(err)}")
+    if n > 0:
+        BWD_LAUNCHES += 1
+        BWD_TILED_LAUNCHES += 1
+    # the blocks' partial sums, reduced in a fixed order
+    return partial.sum(0, dtype=torch.float64).to(torch.float32), wbar
+
+
+def _launch_bwd_thread(plan, flat, stage, jac, jbar, xbar, config, workspace):
+    """One launch of the per-thread backward kernel on the current stream,
+    its arrays in a device workspace where ``workspace``."""
     global BWD_LAUNCHES
     from nf_tpu_torch.ops import _build
 
@@ -511,18 +685,15 @@ def _launch_bwd(plan, flat, stage, jac, jbar, xbar, config, workspace):
     n = jac.shape[0]
     device = flat.device
     desc = plan.descriptor(device)
-    block, w_smem = config or plan.bwd_config
+    block, w_smem = config or (train_bwd_thread_config(plan) if plan.bwd_kernel == "tiled"
+                               else plan.bwd_config)
     if block not in BWD_BLOCKS + SMALL_BLOCKS:
         raise ValueError(f"backward block {block} not in {BWD_BLOCKS + SMALL_BLOCKS}")
-    smem = train_bwd_smem_bytes(plan, block, w_smem)
+    smem = train_bwd_thread_smem_bytes(plan, block, w_smem)
     n_blocks = min(-(-n // block), BWD_MAX_THREADS // block)
     partial = torch.empty((n_blocks, plan.n_weights), dtype=torch.float32, device=device)
     wbar = torch.empty((n, n_flow), dtype=torch.float32, device=device)
-    if workspace is not None and not workspace and plan.bwd_ws:
-        raise ValueError("training backward: the plan is beyond the local arrays "
-                         "(train_bwd_workspace); it needs the workspace")
-    per_thread = plan.bwd_ws if workspace is None else (
-        bwd_workspace_floats(plan) if workspace else 0)
+    per_thread = bwd_workspace_floats(plan) if workspace else 0
     ws = torch.empty(per_thread * n_blocks * block, dtype=torch.float32, device=device) \
         if per_thread else None
     with torch.cuda.device(device):
@@ -530,7 +701,7 @@ def _launch_bwd(plan, flat, stage, jac, jbar, xbar, config, workspace):
             desc.data_ptr(), desc.numel(), flat.data_ptr(), flat.numel(),
             stage.data_ptr(), jac.data_ptr(), jbar.data_ptr(), xbar.data_ptr(),
             partial.data_ptr(), wbar.data_ptr(), n, n_blocks, block, int(w_smem),
-            len(plan.flow.ops), *train_bwd_tiles(plan), smem,
+            len(plan.flow.ops), *train_bwd_thread_tiles(plan), smem,
             ws.data_ptr() if per_thread else None, ws.numel() if per_thread else 0, n_flow,
             (ctypes.c_int * 4)(*plan.bwd_sizes), torch.cuda.current_stream(device).cuda_stream)
     if err != 0:

@@ -324,16 +324,29 @@ def sweep(tree):
         row = {"default_ms": time_ms(lambda: pt.train_backward(plan, flat, stage, jac, jbar,
                                                                xbar))}
         if hasattr(pt, "train_bwd_config"):
-            row["default_config"] = pt.train_bwd_config(plan)
-            for block in pt.BWD_BLOCKS:
-                for w_smem in (True, False):
-                    smem = pt.train_bwd_smem_bytes(plan, block, w_smem)
-                    if smem > pt.SMEM_LIMIT:
-                        continue
-                    key = f"block{block}_{'wsmem' if w_smem else 'wl1'}"
-                    row[key + "_ms"] = time_ms(lambda: pt.train_backward(
-                        plan, flat, stage, jac, jbar, xbar, config=(block, w_smem)))
-                    row[key + "_per_sm"] = pt.blocks_per_sm(smem, block)
+            # the per-thread backward (whose counts a tree with the tiled
+            # backward names train_bwd_thread_*), then the tiled backward
+            thread_smem = getattr(pt, "train_bwd_thread_smem_bytes", pt.train_bwd_smem_bytes)
+            kernels = [("", pt.BWD_BLOCKS, thread_smem, ps.blocks_per_sm,
+                        lambda cfg: pt.train_backward(plan, flat, stage, jac, jbar, xbar,
+                                                      config=cfg))]
+            if hasattr(pt, "bwd_tiled_sm_threads"):
+                threads = pt.bwd_tiled_sm_threads(plan)
+                kernels.append(("tiled_", pt.BWD_TILED_BLOCKS, pt.train_bwd_smem_bytes,
+                                lambda smem, block: ps.blocks_per_sm(smem, block, threads),
+                                lambda cfg: pt._launch_bwd_tiled(plan, flat, stage, jac, jbar,
+                                                                 xbar, cfg)))
+                row["tiled_config"] = pt.train_bwd_config(plan)
+            row["default_config"] = getattr(plan, "bwd_config", None) or pt.train_bwd_config(plan)
+            for prefix, blocks, smem_bytes, per_sm, run in kernels:
+                for block in blocks:
+                    for w_smem in (True, False):
+                        smem = smem_bytes(plan, block, w_smem)
+                        if smem > pt.SMEM_LIMIT:
+                            continue
+                        key = f"{prefix}block{block}_{'wsmem' if w_smem else 'wl1'}"
+                        row[key + "_ms"] = time_ms(lambda: run((block, w_smem)))
+                        row[key + "_per_sm"] = per_sm(smem, block)
         for stats in (False, True):
             fwd = "fwd_stats" if stats else "fwd"
             row[fwd + "_default_ms"] = time_ms(lambda: pt.train_forward(plan, flat, w, stats))

@@ -27,8 +27,8 @@ the run, on the runner's stream, then captured (capture records and runs
 nothing), and replayed from then on; a chunk is ``k`` replays launched
 without a host sync.  The manager's generator is registered with each graph,
 so a replay draws what an eager epoch draws at the same offset.  The
-kernels' launch counters (``pwquad_train.FWD_LAUNCHES`` / ``BWD_LAUNCHES``,
-``optim_step.LAUNCHES``) are Python counters, which a replay does not move:
+kernels' launch counters (``pwquad_train.FWD_LAUNCHES`` / ``BWD_LAUNCHES`` /
+``BWD_TILED_LAUNCHES``, ``optim_step.LAUNCHES``) are Python counters, which a replay does not move:
 the launches a capture recorded are added once per replay, and the capture
 itself counts none.  (``profiling.HOST_READS`` is not among them: a replay
 reads nothing to the host.)  A failed capture or replay raises, naming the
@@ -77,7 +77,7 @@ from nf_tpu_torch.utils import profiling
 
 # the kernels' launch counters, which a graph replay adds to
 COUNTERS = ((pwquad_train, "FWD_LAUNCHES"), (pwquad_train, "BWD_LAUNCHES"),
-            (optim_step, "LAUNCHES"))
+            (pwquad_train, "BWD_TILED_LAUNCHES"), (optim_step, "LAUNCHES"))
 # one epoch's row: the five statistics of epoch_step, then the preburn flag
 # at the epoch's start and the kill counter after it
 ROW = 7

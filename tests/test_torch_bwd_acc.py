@@ -7,10 +7,11 @@ weights, and the 2 -> 4 collider model of tools/run_2to4.py
 95,784 folded weights) was refused: ``train_bwd_config`` raised
 ``ValueError`` and ``bn_stats="stale"`` could not train it on the card.  Now
 every block accumulates in its own row of the partial-gradient scratch in
-device memory, whatever the plan.  The CPU checks here are the counts that
-``nf_pwquad_train_bwd`` holds its launches to, not the kernel
-(``chip_smoke.py`` phase 13 runs the kernel on this plan against its plain
-version).  Imports neither JAX nor nf_tpu."""
+device memory, whatever the plan and whichever kernel (the tiled backward
+or the per-thread one).  The CPU checks here are the counts that
+``nf_pwquad_train_bwd_tiled`` and ``nf_pwquad_train_bwd`` hold their
+launches to, not the kernels (``chip_smoke.py`` phase 13 runs the kernel on
+this plan against its plain version).  Imports neither JAX nor nf_tpu."""
 
 import pytest
 import torch
@@ -31,30 +32,40 @@ def _zz_plan():
 
 def test_zz_plan_needs_more_than_shared_memory_for_the_accumulator():
     """The fault: with the accumulator in shared memory beside the tiles,
-    not even a block of 32 threads fits the 2 -> 4 plan, so a shared
-    accumulator would leave it no launch."""
+    not even a block of 32 threads fits the 2 -> 4 plan, in either kernel,
+    so a shared accumulator would leave it no launch."""
     plan = _zz_plan()
     assert plan.n_weights == 95784 and len(plan.flow.cells) == 8
     block = ps.SMALL_BLOCKS[-1]
+    assert pt.train_bwd_thread_smem_bytes(plan, block, False) + 4 * plan.n_weights > ps.SMEM_LIMIT
     assert pt.train_bwd_smem_bytes(plan, block, False) + 4 * plan.n_weights > ps.SMEM_LIMIT
     with pytest.raises(ValueError, match="no launch fits"):
         pt.best_launch(pt.BWD_BLOCKS,
-                       lambda b, w: pt.train_bwd_smem_bytes(plan, b, w) + 4 * plan.n_weights,
+                       lambda b, w: pt.train_bwd_thread_smem_bytes(plan, b, w) + 4 * plan.n_weights,
                        what="training backward")
+    with pytest.raises(ValueError, match="no launch fits"):
+        pt.best_launch(pt.BWD_TILED_BLOCKS,
+                       lambda b, w: pt.train_bwd_smem_bytes(plan, b, w) + 4 * plan.n_weights,
+                       what="tiled training backward")
 
 
 def test_zz_plan_backward_launch_with_the_accumulator_in_device_memory():
+    """The tiled backward in blocks of 128, two an SM, with one cell's hidden
+    layers and one transformed dimension's last-layer columns copied into
+    shared memory beside the tiles; the accumulator outside."""
     plan = _zz_plan()
     block, w_smem = pt.train_bwd_config(plan)
     smem = pt.train_bwd_smem_bytes(plan, block, w_smem)
-    assert (block, w_smem) == (256, False)
+    assert (block, w_smem) == (128, True)
     assert smem <= ps.SMEM_LIMIT and pt.blocks_per_sm(smem, block) >= 2
-    # the tiles alone: the weights and the accumulator both outside
-    h_rows, g_rows = pt.train_bwd_tiles(plan)
-    assert smem == 4 * (plan.desc_len + len(plan.flow.ops) + 1
-                        + (h_rows + g_rows) * (block + 1) + 4 * block)
+    # the tiles and the weights' copies: the weights and the accumulator
+    # both outside
+    h_rows, z_rows, v_rows, wh, wl = pt.train_bwd_tiles(plan)
+    assert smem == 4 * (pt.round4(plan.desc_len + plan.fwd_tab.size) + wh + wl
+                        + (2 * plan.flow.n_flow + h_rows + z_rows + v_rows) * (block + 4))
+    assert wh + wl < plan.n_weights // 25
     plan.descriptor("cpu")
-    assert plan.bwd_config == (256, False)
+    assert plan.bwd_config == (128, True) and plan.bwd_kernel == "tiled" and plan.bwd_ws == 0
     # the forward and the sampler fit this plan as they are
     assert plan.fwd_config[False] == (256, False)
     assert ps.SamplerPlan(plan.flow).config == (256, False)
@@ -66,27 +77,30 @@ def test_zz_plan_backward_launch_with_the_accumulator_in_device_memory():
     ((2, 2, 4, (128, 128)), {}, (128, False)),
 ])
 def test_accumulator_takes_no_shared_memory(args, kw, config):
-    """Camel, the 10-D flagship and create_model(2, 4, [128, 128]): a
+    """Camel, the 10-D flagship (the per-thread backward on its local
+    arrays) and create_model(2, 4, [128, 128]) (on its workspace): a
     block's shared memory holds the weights (where the launch puts them
     there) and the tiles, and no accumulator; each launch keeps at least as
-    many threads resident as it did with the accumulator in shared
-    memory."""
+    many threads resident as it did with the accumulator in shared memory.
+    (The tiled kernel's count is held on the zz4l plan above.)"""
     plan = pt.TrainPlan(factory.build_pwquad_flow(torch.Generator().manual_seed(0), *args,
                                                   **kw).flow)
-    block, w_smem = pt.train_bwd_config(plan)
+    plan.descriptor("cpu")
+    block, w_smem = plan.bwd_config
     assert (block, w_smem) == config
-    h_rows, g_rows = pt.train_bwd_tiles(plan)
+    assert plan.bwd_kernel == ("workspace" if plan.bwd_ws else "local")
+    h_rows, g_rows = pt.train_bwd_thread_tiles(plan)
     tiles = 4 * (plan.desc_len + len(plan.flow.ops) + 1 + (h_rows + g_rows) * (block + 1)
                  + 4 * block)
-    assert pt.train_bwd_smem_bytes(plan, block, False) == tiles
-    assert pt.train_bwd_smem_bytes(plan, block, True) == tiles + 4 * plan.n_weights
+    assert pt.train_bwd_thread_smem_bytes(plan, block, False) == tiles
+    assert pt.train_bwd_thread_smem_bytes(plan, block, True) == tiles + 4 * plan.n_weights
 
     def shared_acc(b, w):
-        return pt.train_bwd_smem_bytes(plan, b, w) + 4 * plan.n_weights
+        return pt.train_bwd_thread_smem_bytes(plan, b, w) + 4 * plan.n_weights
 
     before = pt.best_launch(pt.BWD_BLOCKS, shared_acc)
-    assert pt.blocks_per_sm(pt.train_bwd_smem_bytes(plan, block, w_smem), block) * block >= \
-        pt.blocks_per_sm(shared_acc(*before), before[0]) * before[0]
+    assert pt.blocks_per_sm(pt.train_bwd_thread_smem_bytes(plan, block, w_smem), block) * \
+        block >= pt.blocks_per_sm(shared_acc(*before), before[0]) * before[0]
 
 
 def test_zz_plan_stale_trainer_runs_on_the_cpu():

@@ -10,6 +10,7 @@ a machine with a GPU and no JAX (``tests/conftest.py`` imports JAX, hence
 Without a card the ``cuda`` tests skip; the rest run anywhere.
 """
 
+import ctypes
 import dataclasses
 import math
 
@@ -30,10 +31,10 @@ FLOWS = {
         g, 10, 8, 8, (16, 16), device=d, final_rank=4),
     "pwquad_squareplus_nohidden": lambda g, d: factory.build_pwquad_flow(
         g, 3, 3, 5, (), device=d, activation="squareplus"),
-    # hidden layers at the backward's local-array width and a factored final
-    # layer
+    # hidden layers at the tiled backward's widest last-layer input and a
+    # factored final layer
     "pwquad_max_hidden_rank": lambda g, d: factory.build_pwquad_flow(
-        g, 2, 2, 4, (pt.BWD_LOCAL_HIDDEN, pt.BWD_LOCAL_HIDDEN), device=d, final_rank=3),
+        g, 2, 2, 4, (pt.BWD_TILED_MAX_FIN, pt.BWD_TILED_MAX_FIN), device=d, final_rank=3),
     "pwlin": lambda g, d: factory.build_pwlin_flow(g, 3, 1, 3, 8, (8, 8), 1, device=d),
     "affine": lambda g, d: factory.build_affine_flow(g, 3, 1, 2, (6,), 1, device=d),
     # beyond the kernels' old caps (32 bins, a hidden width of 64, 32
@@ -46,6 +47,9 @@ FLOWS = {
     "pwquad_wide128": lambda g, d: factory.build_pwquad_flow(g, 2, 2, 4, (128, 128), device=d),
 }
 OVER_CAPS = ["pwquad_bins40_hidden96", "pwquad_flow36_narrow", "pwquad_wide128"]
+# the plans whose last layer takes more inputs than the tiled backward's
+# register tiles hold: they run the workspace backward
+WORKSPACE = ["pwquad_bins40_hidden96", "pwquad_wide128"]
 
 
 def _model(name, device="cpu"):
@@ -113,7 +117,9 @@ def test_wrapper_rejects_bad_input():
 def test_plans_over_the_old_caps_get_a_launch(n_flow, n_bins, nn):
     """Plans nf_tpu's kernels take, which the port's kernels once refused,
     are encoded and given a launch by the sampler and by both training
-    kernels; the backward's per-thread arrays then live in its workspace."""
+    kernels; the backward runs the tiled kernel, or the per-thread kernel on
+    its workspace where a last layer takes more inputs than the tiled
+    kernel's register tiles hold."""
     model = factory.build_pwquad_flow(torch.Generator().manual_seed(0), n_flow, 2, n_bins, nn)
     desc, weights = ps.encode_plan(model.flow, ps.fold_eval_params(model.flow, model))
     plan = ps.SamplerPlan(model.flow)
@@ -124,8 +130,12 @@ def test_plans_over_the_old_caps_get_a_launch(n_flow, n_bins, nn):
     assert torch.equal(tplan.descriptor("cpu"), torch.as_tensor(desc))
     for stats, (block, w_smem) in tplan.fwd_config.items():
         assert pt.train_fwd_smem_bytes(tplan, block, w_smem, stats) <= ps.SMEM_LIMIT
-    assert pt.train_bwd_smem_bytes(tplan, *tplan.bwd_config) <= ps.SMEM_LIMIT
-    assert tplan.bwd_ws == pt.bwd_workspace_floats(tplan) > 0
+    wide = max(m[-1][0] for m in tplan.meta) > pt.BWD_TILED_MAX_FIN
+    count = pt.train_bwd_smem_bytes if tplan.bwd_kernel == "tiled" else \
+        pt.train_bwd_thread_smem_bytes
+    assert tplan.bwd_kernel == ("workspace" if wide else "tiled")
+    assert count(tplan, *tplan.bwd_config) <= ps.SMEM_LIMIT
+    assert tplan.bwd_ws == (pt.bwd_workspace_floats(tplan) if wide else 0)
 
 
 def test_encode_plan_layout():
@@ -461,14 +471,16 @@ def _hold_forward(plan, flat, w, with_stats, config=None):
     return out
 
 
-def _hold_train(plan, flat, w, xbar, jbar):
+def _hold_train(plan, flat, w, xbar, jbar, workspace=None):
     """Forward, stats and backward kernels against their plain versions on
-    the same inputs, the whole batch in one launch."""
+    the same inputs, the whole batch in one launch (the backward on its
+    workspace where ``workspace``)."""
     _, jac_k, stage_k, _ = _hold_forward(plan, flat, w, with_stats=True)
     # the samples at a kink take no part in the backward's check
     keep = (pt.kink_distance(plan.flow, flat.double(), w.double()) > KINK).to(torch.float32)
     xbar, jbar = xbar * keep[:, None], jbar * keep
-    dflat_k, wbar_k = pt.train_backward(plan, flat, stage_k, jac_k, jbar, xbar)
+    dflat_k, wbar_k = pt.train_backward(plan, flat, stage_k, jac_k, jbar, xbar,
+                                        workspace=workspace)
     # the plain backward in float64 on the same inputs: in float32, torch's
     # autograd of the plain version loses up to 5e-2 relative on squareplus
     # cells, where the hand VJP keeps 1e-6; nf_tpu's hand-VJP-vs-autodiff
@@ -555,12 +567,15 @@ def test_train_backward_at_block_edges(cuda, name, size):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", ["pwquad_camel", "pwquad_masked_rank"])
+@pytest.mark.parametrize("name", ["pwquad_camel", "pwquad_masked_rank",
+                                  "pwquad_max_hidden_rank"])
 def test_train_backward_every_launch_config(cuda, name):
-    """Every block size, with the weights in shared memory or through L1,
-    gives each sample the same latent cotangents bit for bit, and a weight
-    gradient (summed per block in another order) within nf_tpu's
-    hand-VJP gate of the plain version in float64."""
+    """Every block size of the plan's backward (the per-thread kernel on
+    camel and the flagship, the tiled kernel on hidden layers of 64), with
+    the weights or their copies in shared memory or read through L1, gives
+    each sample the same latent cotangents bit for bit, and a weight
+    gradient (summed per block in another order) within nf_tpu's hand-VJP
+    gate of the plain version in float64."""
     model = _model(name, cuda)
     plan = pt.TrainPlan(model.flow)
     flat = pt.fold_flow(model).detach()
@@ -572,7 +587,8 @@ def test_train_backward_every_launch_config(cuda, name):
     _, jac, stage = pt.train_forward(plan, flat, w)
     dflat_r, _ = _backward_ref64(plan.flow, flat, w, xbar, jbar)
     wbar_ref = pt.train_backward(plan, flat, stage, jac, jbar, xbar, config=(128, True))[1]
-    for block in pt.BWD_BLOCKS:
+    assert plan.bwd_kernel == ("tiled" if name == "pwquad_max_hidden_rank" else "local")
+    for block in pt.BWD_TILED_BLOCKS if plan.bwd_kernel == "tiled" else pt.BWD_BLOCKS:
         for w_smem in (True, False):
             dflat, wbar = pt.train_backward(plan, flat, stage, jac, jbar, xbar,
                                             config=(block, w_smem))
@@ -644,21 +660,25 @@ def test_train_forward_launches_bit_identical(cuda, name):
 @pytest.mark.cuda
 @pytest.mark.parametrize("name", OVER_CAPS)
 def test_train_backward_workspace_matches_plain_version(cuda, name):
-    """Beyond the backward's local arrays its per-thread arrays live in a
-    device workspace: forward, stats and backward against their plain
-    versions (the backward against float64, kinks masked) at two sizes, the
-    larger several grid passes; repeats bit-identical."""
+    """Beyond the local arrays the per-thread backward's arrays live in a
+    device workspace (the plan's backward where a last layer takes more
+    inputs than the tiled backward's register tiles; asked for on the
+    36-dim flow, which the tiled backward runs by default): forward, stats
+    and the workspace backward against their plain versions (the backward
+    against float64, kinks masked) at two sizes, the larger several grid
+    passes; repeats bit-identical."""
     model = _model(name, cuda)
     plan = pt.TrainPlan(model.flow)
-    assert plan.bwd_ws > 0
+    assert plan.bwd_kernel == ("workspace" if name in WORKSPACE else "tiled")
+    assert pt.bwd_workspace_floats(plan) > 0
     flat = pt.fold_flow(model).detach()
     for n in (333, 40000):
         w = _latents(n, model.flow.n_flow, cuda)
         xbar, jbar = _cotangents(n, model.flow.n_flow, cuda)
-        _hold_train(plan, flat, w, xbar, jbar)
+        _hold_train(plan, flat, w, xbar, jbar, workspace=True)
         _, jac, stage = pt.train_forward(plan, flat, w)
-        first = pt.train_backward(plan, flat, stage, jac, jbar, xbar)
-        again = pt.train_backward(plan, flat, stage, jac, jbar, xbar)
+        first = pt.train_backward(plan, flat, stage, jac, jbar, xbar, workspace=True)
+        again = pt.train_backward(plan, flat, stage, jac, jbar, xbar, workspace=True)
         assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
 
 
@@ -680,10 +700,11 @@ def test_train_backward_workspace_equals_local_arrays(cuda, name):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", OVER_CAPS)
+@pytest.mark.parametrize("name", WORKSPACE)
 def test_train_backward_refuses_local_arrays_beyond_their_sizes(cuda, name):
-    """A plan beyond the local arrays' sizes with the workspace turned off
-    raises before any launch; nothing overruns the arrays."""
+    """A plan beyond the local arrays' sizes and the tiled backward's
+    register tiles with the workspace turned off raises before any launch;
+    nothing overruns the arrays."""
     model = _model(name, cuda)
     plan = pt.TrainPlan(model.flow)
     flat = pt.fold_flow(model).detach()
@@ -754,6 +775,118 @@ def test_fused_train_launches_both_kernels(cuda):
                for p in model.parameters())
     with pytest.raises(ValueError):
         pt.train_forward(plan, pt.fold_flow(model).detach(), w.cpu())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pwquad_max_hidden_rank", "pwquad_flow36_narrow"])
+def test_tiled_backward_matches_the_per_thread_kernel(cuda, name):
+    """On plans the tiled kernel runs, the per-thread kernel on its
+    workspace gives the same per-sample arithmetic: the latent cotangents
+    and the weight gradient within nf_tpu's hand-VJP gate of each other
+    (nvcc fuses a few of the VJPs' multiplies and adds differently in the
+    two, and the weight gradient is summed in another order)."""
+    model = _model(name, cuda)
+    plan = pt.TrainPlan(model.flow)
+    assert plan.bwd_kernel == "tiled"
+    flat = pt.fold_flow(model).detach()
+    w = _latents(20000, model.flow.n_flow, cuda)
+    xbar, jbar = _cotangents(20000, model.flow.n_flow, cuda)
+    _, jac, stage = pt.train_forward(plan, flat, w)
+    tiled = pt.train_backward(plan, flat, stage, jac, jbar, xbar)
+    ws = pt.train_backward(plan, flat, stage, jac, jbar, xbar, workspace=True)
+    for a, b in list(zip(pt.unpack_flat(plan.flow, tiled[0]),
+                         pt.unpack_flat(plan.flow, ws[0]))) + [(tiled[1], ws[1])]:
+        torch.testing.assert_close(a, b, atol=2e-4 * max(float(b.abs().max()), 1e-3),
+                                   rtol=2e-3)
+
+
+@pytest.mark.cuda
+def test_tiled_backward_residency_is_the_occupancy_calculators(cuda):
+    """The blocks an SM the launch rule counts for the tiled backward (by
+    shared memory, and by registers as its launch bound sets them) are the
+    CUDA occupancy calculator's for the compiled kernel, at every block
+    size and place of the weights' copies, with one, two and four register
+    tiles of R."""
+    from nf_tpu_torch.ops import _build
+    lib = _build.library()
+    plans = {"camel": FLOWS["pwquad_camel"], "zz4l": lambda g, d: _zz4l_model(d),
+             "hidden40": lambda g, d: factory.build_pwquad_flow(g, 2, 2, 4, (40,), device=d)}
+    seen = set()
+    for name, make in plans.items():
+        plan = pt.TrainPlan(make(torch.Generator(device=cuda).manual_seed(0), cuda).flow)
+        rt = pt.train_bwd_microtile(plan)
+        seen.add(rt)
+        for block in pt.BWD_TILED_BLOCKS:
+            for w_smem in (True, False):
+                smem = pt.train_bwd_smem_bytes(plan, block, w_smem)
+                got = ctypes.c_int(-1)
+                with torch.cuda.device(cuda):
+                    err = lib.nf_pwquad_train_bwd_tiled_occupancy(rt, int(w_smem), block, smem,
+                                                                  ctypes.byref(got))
+                assert err == 0, _build.error_string(err)
+                assert got.value == pt.blocks_per_sm(smem, block, pt.bwd_tiled_sm_threads(plan)), \
+                    (name, block, w_smem)
+    assert seen == {1, 2, 4}
+
+
+def _zz4l_model(device):
+    """The 2 -> 4 plan of the zz4l configuration: n_flow 10, 32 bins,
+    hidden layers [32, 32], its 8 cells, BatchNorms moved off their init."""
+    from nf_tpu_torch import PWQuadManager
+    NF = PWQuadManager(n_flow=10, seed=0, device=device)
+    NF.create_model(4, 32, [32, 32])
+    gen = torch.Generator(device=device).manual_seed(18)
+    with torch.no_grad():
+        for key, t in list(NF._model.named_buffers()) + list(NF._model.named_parameters()):
+            if key.endswith("mean"):
+                t.copy_(0.3 * torch.randn(t.shape, generator=gen, device=device))
+            elif key.endswith("var"):
+                t.copy_(0.5 + 1.5 * torch.rand(t.shape, generator=gen, device=device))
+            elif key.endswith("scale"):
+                t.copy_(1.0 + 0.3 * torch.randn(t.shape, generator=gen, device=device))
+    return NF._model
+
+
+@pytest.mark.cuda
+def test_tiled_backward_on_the_zz4l_plan(cuda):
+    """The tiled backward on the zz4l plan at 2^18 + 333 (several tiles a
+    block, the last ragged) against the plain version in float64, with the
+    samples within 1e-5 of a kink masked; two launches bit-identical; each
+    backward is one launch, counted by BWD_TILED_LAUNCHES as by
+    BWD_LAUNCHES."""
+    model = _zz4l_model(cuda)
+    plan = pt.TrainPlan(model.flow)
+    flat = pt.fold_flow(model).detach()
+    assert plan.bwd_ws == 0 and plan.bwd_kernel == "tiled"
+    n = (1 << 18) + 333
+    w = _latents(n, model.flow.n_flow, cuda)
+    xbar, jbar = _cotangents(n, model.flow.n_flow, cuda)
+    launches = (pt.BWD_LAUNCHES, pt.BWD_TILED_LAUNCHES)
+    _hold_train(plan, flat, w, xbar, jbar)
+    _, jac, stage = pt.train_forward(plan, flat, w)
+    first = pt.train_backward(plan, flat, stage, jac, jbar, xbar)
+    again = pt.train_backward(plan, flat, stage, jac, jbar, xbar)
+    torch.cuda.synchronize()
+    assert torch.equal(first[0], again[0]) and torch.equal(first[1], again[1])
+    assert (pt.BWD_LAUNCHES, pt.BWD_TILED_LAUNCHES) == (launches[0] + 3, launches[1] + 3)
+
+
+@pytest.mark.cuda
+def test_tiled_backward_counts_its_launches(cuda):
+    """FusedTrain's backward is one launch: of the tiled kernel on a plan
+    with hidden layers of 64, of the per-thread kernel on camel (local
+    arrays) and on create_model(2, 4, [128, 128]) (the workspace), which
+    BWD_TILED_LAUNCHES does not count."""
+    for name, tiled in (("pwquad_max_hidden_rank", 1), ("pwquad_camel", 0),
+                        ("pwquad_wide128", 0)):
+        model = _model(name, cuda)
+        plan = pt.TrainPlan(model.flow)
+        w = _latents(1000, model.flow.n_flow, cuda)
+        launches = (pt.BWD_LAUNCHES, pt.BWD_TILED_LAUNCHES)
+        x, jac = pt.fused_train(plan, pt.fold_flow(model), w)
+        torch.var(jac).backward()
+        assert (pt.BWD_LAUNCHES, pt.BWD_TILED_LAUNCHES) == (launches[0] + 1,
+                                                             launches[1] + tiled)
 
 
 @pytest.mark.cuda

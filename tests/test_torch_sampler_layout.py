@@ -164,11 +164,11 @@ def test_sampler_tiles_over_the_old_caps():
 
 def test_launch_falls_back_to_small_blocks_then_raises():
     """A plan whose tiles fit no block of 128 (460 latent dims: X alone takes
-    237,360 B at 128 threads) takes 64 or 32 threads in the sampler and the
-    training forward; the backward, whose tiles hold layers and not X, keeps
-    its own sizes.  A plan that fits not even 32 threads raises ValueError
-    for the sampler and the training kernels alike; nothing falls back to
-    the plain version."""
+    237,360 B at 128 threads) takes 64 or 32 threads in the sampler, the
+    training forward and the tiled backward (whose X and XB hold the state
+    as the forward's X does).  A plan that fits not even 32 threads raises
+    ValueError for the sampler and the training kernels alike; nothing
+    falls back to the plain version."""
     gen = torch.Generator().manual_seed(0)
     many = factory.build_pwlin_flow(gen, 460, 230, 1, 2, (2,), 1)
     plan = ps.SamplerPlan(many.flow)
@@ -177,7 +177,8 @@ def test_launch_falls_back_to_small_blocks_then_raises():
     tplan = pt.TrainPlan(many.flow)
     tplan.descriptor("cpu")
     assert all(config[0] in ps.SMALL_BLOCKS for config in tplan.fwd_config.values())
-    assert tplan.bwd_config[0] in pt.BWD_BLOCKS
+    assert tplan.bwd_ws == 0 and tplan.bwd_config[0] in ps.SMALL_BLOCKS
+    assert pt.train_bwd_smem_bytes(tplan, 64, False) > ps.SMEM_LIMIT
     huge = factory.build_pwquad_flow(gen, 2, 2, 4, (900, 900))
     with pytest.raises(ValueError, match="no launch fits"):
         ps.SamplerPlan(huge.flow)
@@ -195,10 +196,13 @@ def test_blocks_per_sm_counts_the_block_limit(smem, block, expected):
 
 
 def test_backward_workspace_sizes():
-    """wide128: a cell's layer inputs 1 + 128 + 128 = 257 > 256, so the
-    backward's arrays move to its workspace: per thread 3 x 2 (xbar, xin,
-    the permutation's scratch) + 257 + 2 x 128 + 2 x 9 (logits and their
-    cotangent) + 5 x 4 + 3.  The flagship stays on the local arrays."""
+    """wide128: its last layer takes 128 inputs, more than the tiled
+    backward's register tiles hold (64), so it runs the workspace backward,
+    whose arrays per thread are 3 x 2 (xbar, xin, the permutation's
+    scratch) + 257 + 2 x 128 + 2 x 9 (logits and their cotangent) + 5 x 4 +
+    3.  The flagship takes the tiled kernel; of the plans beyond the old
+    local arrays' caps, those whose last layer takes more than 64 inputs
+    run the workspace kernel, the rest the tiled one."""
     plan = pt.TrainPlan(SAMPLER_PLANS["wide128"](torch.Generator().manual_seed(0)).flow)
     assert plan.bwd_sizes == (257, 128, 9, 4)
     assert plan.bwd_ws == pt.bwd_workspace_floats(plan) == 6 + 257 + 256 + 18 + 23
@@ -206,7 +210,8 @@ def test_backward_workspace_sizes():
     assert flagship.bwd_ws == 0 and flagship.bwd_sizes == (8 + 16 + 16 + 4, 16, 17, 8)
     for name in OVER_CAPS:
         plan = pt.TrainPlan(SAMPLER_PLANS[name](torch.Generator().manual_seed(0)).flow)
-        assert plan.bwd_ws > 0
+        wide = max(m[-1][0] for m in plan.meta) > pt.BWD_TILED_MAX_FIN
+        assert plan.bwd_ws == (pt.bwd_workspace_floats(plan) if wide else 0)
 
 
 def test_stats_partial_rows_cover_a_block_sum():
