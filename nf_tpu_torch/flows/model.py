@@ -154,8 +154,13 @@ def inverse(flow: Flow, model: FlowModel, x: torch.Tensor, train: bool = False):
     conditioners run in eval mode unless ``train``, in which case their
     BatchNorm layers normalize with this batch and move their buffers, as
     the forward's train mode does.  Counterpart of nf_tpu's
-    ``flows.model.inverse``.
+    ``flows.model.inverse``.  Each call adds one to
+    ``profiling.FLOW_INVERSES``.
     """
+    # imported here: nf_tpu_torch.utils imports the trainers, which import this module
+    from nf_tpu_torch.utils import profiling
+
+    profiling.FLOW_INVERSES += 1
     y = x
     jac = torch.ones(x.shape[0], dtype=x.dtype, device=x.device)
     for op in reversed(flow.ops):

@@ -39,6 +39,18 @@ Differences in idiom, against nf_tpu:
 
 Plain torch: nf_tpu's functions here reach no Pallas kernel.
 
+Spans (:mod:`nf_tpu_torch.utils.profiling`): ``nf.mc.train`` is the
+trainer's call, with ``nf.mc.pilot`` (the ``w_scale`` pass) and per epoch
+``nf.mc.epoch``; inside the pilot and each minibatch, per source channel
+``nf.mc.propose`` (the flow's forward, the kinematics and the PDF) and per
+(source, density channel) pair ``nf.mc.density`` (the channel weight, the
+inverse kinematics and the flow's inverse); then ``nf.mc.loss``,
+``nf.mc.backward``, the epoch's ``nf.mc.step`` and ``nf.mc.alphas`` (ESS,
+the best-model copy and the Kleiss-Pittau update).  ``nf.read.history``
+marks each blocking read, counted in ``profiling.HOST_READS``: the four
+history rows of every chunk, then the alphas, the best alphas and the best
+ESS at the end, so a call of one chunk makes 7.
+
 ``mesh`` (a 1-D ``"dp"`` mesh, :mod:`nf_tpu_torch.parallel`) shards each
 channel's batch, as nf_tpu's ``_shard_batch``: every rank draws the global
 latents and maps its rows; :func:`mixture_weights` gathers the global
@@ -62,7 +74,7 @@ from nf_tpu_torch.parallel.dp import (all_gather_rows, all_reduce_max, all_reduc
                                       average_gradients, broadcast_replicas)
 from nf_tpu_torch.parallel.mesh import group_of, local_rows, rank_and_size
 from nf_tpu_torch.training.unweight import _quantile
-from nf_tpu_torch.utils import checkpoint
+from nf_tpu_torch.utils import checkpoint, profiling
 
 _EPS_U = 1e-9
 # the per-channel knapsack's floor on a channel's schedule share, as a
@@ -185,30 +197,33 @@ def _mixture(channels, models, matrix_element, E_cm, generator, batch_per_channe
     ws, qs, rs, fs, moms, xbs = [], [], [], [], [], []
     for k in sources:
         ch = channels[k]
-        z = _uniform(generator, (batch_per_channel, n_lat), dtype, device)[lo:hi]
-        with torch.no_grad():
-            u_k, _ = models[k](z, False)
-            u_k = torch.clamp(u_k, _EPS_U, 1.0 - _EPS_U)
-            x, w_full = ch.generateKinematics_batch(
-                E_cm, u_k, pT_mincut=pT_mincut, delR_mincut=delR_mincut,
-                rap_maxcut=rap_maxcut, pdgs=pdgs)
-            xb1 = xb2 = None
-            if ch.pdf_active:
-                _, _, xb1, xb2, _ = ch._convolve_pdf(E_cm, u_k, pdgs)
+        with profiling.span("nf.mc.propose"):
+            z = _uniform(generator, (batch_per_channel, n_lat), dtype, device)[lo:hi]
+            with torch.no_grad():
+                u_k, _ = models[k](z, False)
+                u_k = torch.clamp(u_k, _EPS_U, 1.0 - _EPS_U)
+                x, w_full = ch.generateKinematics_batch(
+                    E_cm, u_k, pT_mincut=pT_mincut, delR_mincut=delR_mincut,
+                    rap_maxcut=rap_maxcut, pdgs=pdgs)
+                xb1 = xb2 = None
+                if ch.pdf_active:
+                    _, _, xb1, xb2, _ = ch._convolve_pdf(E_cm, u_k, pdgs)
         dens, ps_k = [], None
         for m, chm in enumerate(channels):
-            with torch.no_grad():
-                ps_m = chm.channel_weight_ps(x)
-                if m == k:
-                    ps_k, u_m, ok_m = ps_m, u_k, ps_m > 0
-                else:
-                    u_m = chm.invertKinematics_batch(E_cm, x, xb1, xb2)
-                    # in support: ps_m > 0 and the inverse inside the open
-                    # cube (clip endpoints mark unreachable points)
-                    ok_m = (ps_m > 0) & torch.all((u_m > 0.0) & (u_m < 1.0), dim=1)
-                u_m = torch.clamp(torch.where(ok_m[:, None], u_m, 0.5), _EPS_U, 1.0 - _EPS_U)
-            _, rho_m = flow_inverse(models[m].flow, models[m], u_m, train=False)
-            dens.append(torch.where(ok_m, rho_m / torch.where(ok_m, ps_m, 1.0), 0.0))
+            with profiling.span("nf.mc.density"):
+                with torch.no_grad():
+                    ps_m = chm.channel_weight_ps(x)
+                    if m == k:
+                        ps_k, u_m, ok_m = ps_m, u_k, ps_m > 0
+                    else:
+                        u_m = chm.invertKinematics_batch(E_cm, x, xb1, xb2)
+                        # in support: ps_m > 0 and the inverse inside the open
+                        # cube (clip endpoints mark unreachable points)
+                        ok_m = (ps_m > 0) & torch.all((u_m > 0.0) & (u_m < 1.0), dim=1)
+                    u_m = torch.clamp(torch.where(ok_m[:, None], u_m, 0.5), _EPS_U,
+                                      1.0 - _EPS_U)
+                _, rho_m = flow_inverse(models[m].flow, models[m], u_m, train=False)
+                dens.append(torch.where(ok_m, rho_m / torch.where(ok_m, ps_m, 1.0), 0.0))
         dens = torch.stack(dens, dim=0)                        # [C, B]
         q_hat = torch.sum(alphas[:, None] * dens, dim=0)
         with torch.no_grad():
@@ -253,6 +268,7 @@ def _loss(loss_mode, w, aux, w_scale, alphas, group=None):
     return torch.sum(alphas * m2)
 
 
+@profiling.spanned("nf.mc.train")
 def train_multichannel(channels, models, matrix_element, E_cm, optimizer,
                        generator, alphas=None, batch_per_channel=4096, epochs=100,
                        loss_mode="var", learn_alphas=True, alpha_damping=0.5,
@@ -369,11 +385,12 @@ def train_multichannel(channels, models, matrix_element, E_cm, optimizer,
     else:
         # the weight scale (the manager's maxf): one detached pass at the
         # initial parameters keeps the loss O(1)
-        with torch.no_grad():
+        with torch.no_grad(), profiling.span("nf.mc.pilot"):
             w0, _ = _mixture(channels, models, matrix_element, E_cm, generator, mb, alphas,
                              **kw)
-        w_scale = torch.clamp_min(all_reduce_max(torch.max(w0), group), tiny)
+            w_scale = torch.clamp_min(all_reduce_max(torch.max(w0), group), tiny)
 
+    @profiling.spanned("nf.mc.epoch")
     def epoch():
         nonlocal alphas, best_ess, best_alphas
         opt.zero_grad(set_to_none=True)
@@ -382,8 +399,10 @@ def train_multichannel(channels, models, matrix_element, E_cm, optimizer,
         for _ in range(n_mb):
             w, aux = _mixture(channels, models, matrix_element, E_cm, generator, mb, alphas,
                               **kw)
-            loss = _loss(loss_mode, w, aux, w_scale, alphas, group)
-            loss.backward()
+            with profiling.span("nf.mc.loss"):
+                loss = _loss(loss_mode, w, aux, w_scale, alphas, group)
+            with profiling.span("nf.mc.backward"):
+                loss.backward()
             w = w.detach()
             loss_sum = loss_sum + loss.detach()
             s1 = s1 + torch.sum(w, dim=1)
@@ -391,9 +410,10 @@ def train_multichannel(channels, models, matrix_element, E_cm, optimizer,
             # Kleiss-Pittau numerator sums W_m = E[(f/q)^2 p_m], stratified
             sW = sW + torch.sum(alphas[None, :, None] * w[None, :, :] ** 2
                                 * aux["r"].detach(), dim=(1, 2))
-        average_gradients(params, group, n_mb)
-        opt.step()
-        with torch.no_grad():
+        with profiling.span("nf.mc.step"):
+            average_gradients(params, group, n_mb)
+            opt.step()
+        with torch.no_grad(), profiling.span("nf.mc.alphas"):
             s1, s2, sW = all_reduce_sum(torch.stack([s1, s2, sW]), group).unbind(0)
             m1 = torch.sum(alphas * s1) / batch_per_channel
             m2 = torch.sum(alphas * s2) / batch_per_channel
@@ -415,18 +435,23 @@ def train_multichannel(channels, models, matrix_element, E_cm, optimizer,
     for c in range(c_start, n_calls):
         for _ in range(epochs_per_call):
             epoch()
-        for name in _HISTORY:       # one read-back per chunk
-            hist_host[name].append(torch.cat(hist_dev[name]).cpu())
-            hist_dev[name].clear()
+        with profiling.span("nf.read.history"):     # one read-back per chunk
+            profiling.HOST_READS += len(_HISTORY)
+            for name in _HISTORY:
+                hist_host[name].append(torch.cat(hist_dev[name]).cpu())
+                hist_dev[name].clear()
         if save_state is not None and rank_and_size(group)[0] == 0:
             checkpoint.save(save_state, snapshot(c + 1, opt.state_dict(), {
                 name: torch.cat(v).numpy() for name, v in hist_host.items()}))
         if stop_after_chunks is not None and c + 1 - c_start >= stop_after_chunks:
             break
     history = {name: torch.cat(v).numpy() for name, v in hist_host.items()}
-    return {"params": models, "alphas": alphas.cpu().numpy(), "best_params": best_models,
-            "best_alphas": best_alphas.cpu().numpy(), "best_ess": float(best_ess),
-            "history": history}
+    with profiling.span("nf.read.history"):
+        profiling.HOST_READS += 3
+        alphas, best_alphas, best_ess = (alphas.cpu().numpy(), best_alphas.cpu().numpy(),
+                                         float(best_ess))
+    return {"params": models, "alphas": alphas, "best_params": best_models,
+            "best_alphas": best_alphas, "best_ess": best_ess, "history": history}
 
 
 @torch.no_grad()

@@ -16,6 +16,8 @@ tqdm bars and datetime deltas (SURVEY.md section 5).  Here:
   * :data:`HOST_READS`, the count of blocking reads of device data into host
     memory on the program's call paths, each inside an ``nf.read.<site>``
     span;
+  * :data:`FLOW_INVERSES`, the count of flow inverse evaluations
+    (``flows.model.inverse``), kept on the host;
   * a wall-clock timer that waits for the device work of its outputs, so
     timings measure compute rather than launch.
 """
@@ -36,6 +38,11 @@ import torch
 # rows (and their replay after a stop inside it), an epoch's statistics and
 # the tail integration's.  A read from a CPU tensor counts the same.
 HOST_READS = 0
+
+# Calls of nf_tpu_torch.flows.model.inverse since import (or since a caller
+# reset it): a host-side count, no synchronisation and no device work.  The
+# learned multi-channel mixture makes C^2 of them a minibatch.
+FLOW_INVERSES = 0
 
 _NO_SPAN = contextlib.nullcontext()
 

@@ -7,14 +7,17 @@ no profiler recording no ``record_function`` is entered at all.
 ``profiling.HOST_READS`` counts the blocking reads of device data into host
 memory, one per tensor read, the same on the CPU as on the card: the counts
 below are derived from the code in PERF.md section 3 (camel: 21 tensors a
-cell, 2 cells; the fold reads each once).
+cell, 2 cells; the fold reads each once; the learned multi-channel trainer:
+four history rows a chunk, then three).  ``profiling.FLOW_INVERSES`` counts
+the flow inverses: the mixture makes C^2 a minibatch.
 """
 
 import pytest
 import torch
 
 from nf_tpu_torch import PWQuadManager
-from nf_tpu_torch.training import optimizers
+from nf_tpu_torch.phasespace.topology import BreitWignerSMap, ResonanceDecayPhasespace
+from nf_tpu_torch.training import multichannel, optimizers
 from nf_tpu_torch.training.unweight import generate_unweighted
 from nf_tpu_torch.utils import profiling
 
@@ -52,6 +55,31 @@ def unweight(NF, w_max, batches=3):
     return generate_unweighted(NF._flow, NF._model, camel, gen, 1 << 62, w_max=w_max,
                                batch=4096, max_batches=batches, method="fused",
                                partial_unweight=True)
+
+
+# two channels of competing pairings, without a PDF, and their flows
+MC_CHANNELS = [ResonanceDecayPhasespace(
+    [0.0, 0.0], [0.0] * 4, pairs,
+    mass_maps={tuple(sorted(pairs[0])): BreitWignerSMap(m, g),
+               tuple(sorted(pairs[1])): BreitWignerSMap(m, g)})
+    for pairs, m, g in ((((0, 1), (2, 3)), 91.188, 2.4952), (((0, 3), (1, 2)), 180.0, 8.0))]
+MC_MINIBATCHES = 2
+
+
+def mc_me(momenta):
+    return torch.ones(momenta.shape[0], dtype=momenta.dtype)
+
+
+def train_mixture(epochs=2, epochs_per_call=1):
+    """A learned multi-channel call: 2 epochs of 2 minibatches, one chunk
+    an epoch."""
+    gen = torch.Generator().manual_seed(3)
+    models = multichannel.build_channel_flows(gen, MC_CHANNELS, 2, 4, [8], device="cpu",
+                                              final_rank=2)
+    return multichannel.train_multichannel(
+        MC_CHANNELS, models, mc_me, 400.0, optimizers.adamax(1e-3), gen, alphas=[0.5, 0.5],
+        batch_per_channel=128 * MC_MINIBATCHES, mini_batch_per_channel=128, epochs=epochs,
+        epochs_per_call=epochs_per_call, loss_mode="kl", pT_mincut=5.0)
 
 
 # each entry point: what it runs, the (span, its innermost nf.* parent) pairs
@@ -107,6 +135,17 @@ CALLS = {
          ("nf.read.rerun", "nf.chunk.rerun"), ("nf.train.tail", "nf.train"),
          ("nf.read.tail", "nf.train.tail")},
         3 + 6 + 1 + 18),
+    # the history's four rows a chunk (2 chunks), then the alphas, the best
+    # alphas and the best ESS
+    "train_multichannel": (
+        lambda NF: train_mixture(),
+        {("nf.mc.train", None), ("nf.mc.pilot", "nf.mc.train"),
+         ("nf.mc.propose", "nf.mc.pilot"), ("nf.mc.density", "nf.mc.pilot"),
+         ("nf.mc.epoch", "nf.mc.train"), ("nf.mc.propose", "nf.mc.epoch"),
+         ("nf.mc.density", "nf.mc.epoch"), ("nf.mc.loss", "nf.mc.epoch"),
+         ("nf.mc.backward", "nf.mc.epoch"), ("nf.mc.step", "nf.mc.epoch"),
+         ("nf.mc.alphas", "nf.mc.epoch"), ("nf.read.history", "nf.mc.train")},
+        4 * 2 + 3),
 }
 HIDDEN = {"train_stop_inside_a_chunk": ((4, 4), torch.float64, 1)}
 
@@ -167,6 +206,16 @@ def test_no_span_entered_without_a_profiler(case, monkeypatch):
     assert not torch._C._autograd._profiler_enabled()
     run(NF)
     assert profiling.span("nf.x") is profiling.span("nf.y")
+
+
+@pytest.mark.parametrize("epochs", [1, 3])
+def test_flow_inverses_per_mixture_epoch(epochs):
+    """C^2 inverses a minibatch, and the pilot's C^2 a call; the count
+    syncs nothing, so it holds without a profiler as with one."""
+    C = len(MC_CHANNELS)
+    before = profiling.FLOW_INVERSES
+    train_mixture(epochs, epochs)
+    assert profiling.FLOW_INVERSES - before == C * C * (1 + MC_MINIBATCHES * epochs)
 
 
 def test_fold_reads_every_parameter_and_buffer_once():
