@@ -75,6 +75,11 @@ calibration at grid 1024 and K 64 / 320, each op's cost in FMA units and
 SASS instructions per step (the fma, mul and add chains one FFMA, FMUL,
 FADD a step); the flow kernels' op mix priced at those costs beside their
 bounds; and the fma chain's time beside its plain version's and its bound.
+Phase 19 holds the bin-axis scan (``ops/csrc/bin_scan.cu``) against its own
+order of adds bit for bit and against its plain version at the camel2d,
+zzmc and zz4l scan shapes, in float32 and float64, forward and reversed,
+and times it beside its bound, its plain version and ``torch.cumsum``, with
+the wrapper's host time a call.
 Prints one ``{"kernels": [...]}`` line;
 the last line of standard output is ``{"ok": true, "device": {...}}``; any
 failed check exits non-zero before it is printed.  Exits non-zero at once
@@ -679,7 +684,8 @@ def phase14(dev, card, gen, hold_train, perturb_bn):
     integrand through the kernels, then the learned mixture (per-channel
     flows, their trainer, stratified sampling, multi-channel unweighting,
     checkpoints and LHE output).  Returns ``(launches, errors)`` as
-    :func:`phase13` does."""
+    :func:`phase13` does, with the mixture's launches of the bin-axis scan
+    after the three flow kernels' in ``launches``."""
     import tempfile
 
     import numpy as np
@@ -694,6 +700,7 @@ def phase14(dev, card, gen, hold_train, perturb_bn):
     from nf_tpu_torch.phasespace.topology import multichannel_integrand, optimize_alphas
     from nf_tpu_torch.training import multichannel as mc
     from nf_tpu_torch.training import optimizers
+    from nf_tpu_torch.utils import profiling
     from nf_tpu_torch.utils.lhe import read_lhe, write_lhe
 
     def pb(v):
@@ -827,10 +834,16 @@ def phase14(dev, card, gen, hold_train, perturb_bn):
 
     check(agrees(sig, err), "shared-flow integrate vs uniform MC")
 
-    # ---- second half: the learned mixture, plain torch (no kernel)
+    # ---- second half: the learned mixture, plain torch and the bin-axis scan
+    # (no flow kernel)
     ps.LAUNCHES = pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = 0
+    scans_before = profiling.BIN_SCAN_LAUNCHES
     models = mc.build_channel_flows(torch.Generator(device=dev).manual_seed(0), channels, 4, 16,
                                     [32] * 2, final_rank=4, device=dev)
+    # the scans of one pass of a flow, forward or inverse: two a pwquad cell
+    # (its bin edges and its trapezoid CDF), and as many reversed in a
+    # pass's backward
+    scans_a_pass = 2 * len(models[0].flow.cells)
     buffers = [{k: b.clone() for k, b in m.named_buffers()} for m in models]
     opt = optimizers.adamax(5e-3, 1e-4)
     kw = dict(alphas=list(alphas), loss_mode="kl", **cuts)
@@ -854,13 +867,23 @@ def phase14(dev, card, gen, hold_train, perturb_bn):
             lambda: train(MC_PER_CHANNEL, MC_EPOCHS, MC_EPOCHS_PER_CALL, save_state=path,
                           stop_after_chunks=1), card)
         torch.cuda.synchronize()
+        scans0 = profiling.BIN_SCAN_LAUNCHES
         t0 = time.perf_counter()
         out = train(MC_PER_CHANNEL, MC_EPOCHS, MC_EPOCHS_PER_CALL, save_state=path,
                     resume_from=path)
         torch.cuda.synchronize()
         train_s = time.perf_counter() - t0
+        # resumed, so no pilot: each minibatch draws C source channels
+        # (forward, no gradient) and takes C^2 flow inverses with their
+        # backward
+        n_rest, C = MC_EPOCHS - MC_EPOCHS_PER_CALL, len(channels)
+        scans = profiling.BIN_SCAN_LAUNCHES - scans0
+        want = n_rest * (MC_PER_CHANNEL // MC_MB) * (C + 2 * C * C) * scans_a_pass
+        print(f"phase14 train_multichannel's {n_rest} resumed epochs launched the bin-axis "
+              f"scan {scans} times ({scans / n_rest:.0f} an epoch; derived {want}: "
+              f"{scans_a_pass} scans a pass)")
+        check(scans == want, f"the mixture's scans launch bin_scan: {scans} of {want}")
         peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        n_rest = MC_EPOCHS - MC_EPOCHS_PER_CALL
         h = out["history"]
         print(f"phase14 train_multichannel: {MC_EPOCHS} epochs of 2 x 2^19 in minibatches of "
               f"2 x 2^16 (chunks of {MC_EPOCHS_PER_CALL}, checkpointed); the first chunk "
@@ -1019,9 +1042,12 @@ def phase14(dev, card, gen, hold_train, perturb_bn):
               f"{dev_rel:.3e}, {os.path.getsize(lhe_path)} bytes")
         check(len(back["momenta"]) == len(events) and dev_rel <= 1e-6, "LHE round trip")
     second = (ps.LAUNCHES, pt.FWD_LAUNCHES, pt.BWD_LAUNCHES)
-    print(f"phase14 learned mixture launched sampler/fwd/bwd {second} (plain torch)")
-    check(second == (0, 0, 0), "the learned mixture's path launches no kernel")
-    return launches, errors
+    scans = profiling.BIN_SCAN_LAUNCHES - scans_before
+    print(f"phase14 learned mixture launched sampler/fwd/bwd {second} (no flow kernel) and "
+          f"the bin-axis scan {scans} times")
+    check(second == (0, 0, 0), "the learned mixture's path launches no flow kernel")
+    check(scans > 0, "the learned mixture's path launches the bin-axis scan")
+    return (*launches, scans), errors
 
 
 # ---- phase 15: experiments and sweeps (the resume, the logger and
@@ -2205,6 +2231,121 @@ def phase18(dev, card):
             "bound_ms": b_ms, "bound_by": b_by}
 
 
+# ---- phase 19: the bin-axis scan kernel (ops/bin_scan)
+# the three plans' scans: camel2d (4 bins, 1 transformed dim, batch 10000),
+# zzmc (16 bins, 5 dims, minibatch 2^16), zz4l's first estimate (32 bins,
+# 5 dims, 2^18); the kernels line reports zzmc's float32 forward scan
+P19_SHAPES = (("camel2d", (10000, 1, 4)), ("zzmc", (1 << 16, 5, 16)),
+              ("zz4l", (1 << 18, 5, 32)))
+P19_GRAPH_LAUNCHES = 20                 # launches a timed graph holds
+P19_HOST_CALLS = 2000                   # calls the host time is taken over
+
+
+def graph_ms(fn, launches=P19_GRAPH_LAUNCHES):
+    """Device milliseconds a call of ``fn``: ``launches`` calls captured in
+    one CUDA graph, its replay timed (``time_ms``) over ``launches``; no host
+    time between the launches."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    ms = time_ms(graph.replay) / launches
+    del graph
+    return ms
+
+
+def host_us(fn, calls=P19_HOST_CALLS):
+    """Host microseconds a call of ``fn``, on a tensor small enough that the
+    device keeps up with the launches."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def phase19(dev, card):
+    """The bin-axis scan (``ops/bin_scan``) at the three plans' shapes, float32
+    and float64, forward and reversed: against its own order of adds (each
+    row column by column) bit for bit and against the plain version (torch's
+    scan) within two summation orders' rounding; then each one's device time
+    a launch (``graph_ms``) beside its bound (bytes), the plain version's and
+    the library's ``torch.cumsum`` (``library_ms``, the forward's own plain
+    version); the wrapper's host time a call beside ``torch.cumsum``'s; its
+    own launches counted.  Returns the kernels-line numbers; their
+    ``launches`` are the main path's, phase 14's mixture's."""
+    import torch
+
+    from nf_tpu_torch.ops import bin_scan
+    from nf_tpu_torch.utils import profiling
+
+    t_phase = time.perf_counter()
+    launches0 = profiling.BIN_SCAN_LAUNCHES
+    worst, row, calls = 0.0, None, 0
+    gen = torch.Generator(device=dev).manual_seed(19)
+    for plan, shape in P19_SHAPES:
+        for dtype in (torch.float32, torch.float64):
+            x = torch.rand(shape, generator=gen, device=dev, dtype=dtype).exp()
+            for reverse in (False, True):
+                got = bin_scan.bin_cumsum(x, reverse)
+                want = bin_scan.bin_cumsum_ordered(x, reverse)
+                plain = bin_scan.bin_cumsum_ref(x, reverse)
+                calls += 1
+                torch.cuda.synchronize()
+                u = torch.finfo(dtype).eps / 2
+                rel = float(((got - plain).abs() / plain).max())
+                check(torch.equal(got, want), f"bin_scan {plan} {dtype} reverse={reverse}: "
+                      "the kernel's own order of adds bit for bit")
+                check(rel <= 2 * shape[-1] * u, f"bin_scan {plan} {dtype} reverse={reverse}: "
+                      f"{rel:.3e} from the plain version")
+                worst = max(worst, float((got - plain).abs().max()))
+                out = torch.empty_like(x)
+                ms = graph_ms(lambda: bin_scan._launch(x, reverse))
+                plain_ms = graph_ms(lambda: bin_scan.bin_cumsum_ref(x, reverse))
+                library_ms = graph_ms(lambda: torch.cumsum(x, -1, out=out))
+                calls += 1 + P19_GRAPH_LAUNCHES
+                b_ms, b_by = bound_ms(x.numel(), 2 * x.numel() * x.element_size())
+                print(f"phase19 {plan} {list(shape)} {str(dtype)[6:]} "
+                      f"{'reverse' if reverse else 'forward'}: kernel {ms * 1e3:.2f} us, "
+                      f"bound {b_ms * 1e3:.2f} us by {b_by} ({b_ms / ms:.1%}), plain "
+                      f"{plain_ms * 1e3:.2f} us, library torch.cumsum {library_ms * 1e3:.2f} us "
+                      f"({library_ms / ms:.1f}x the kernel); max rel gap to plain {rel:.2e} "
+                      f"{card}")
+                if plan == "zzmc" and dtype == torch.float32 and not reverse:
+                    row = {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                           "bound_ms": b_ms, "bound_by": b_by}
+    check(profiling.BIN_SCAN_LAUNCHES - launches0 == calls,
+          f"bin_scan counted {profiling.BIN_SCAN_LAUNCHES - launches0} launches of {calls}")
+
+    # the wrapper's host time a call, on 64 rows of 4 bins: the device keeps up
+    x = torch.rand((64, 1, 4), device=dev).exp()
+    xg = x.clone().requires_grad_()
+    wrapper = host_us(lambda: bin_scan.bin_cumsum(x))
+    launch = host_us(lambda: bin_scan._launch(x, False))
+    with_grad = host_us(lambda: bin_scan.bin_cumsum(xg).sum().backward())
+    library = host_us(lambda: torch.cumsum(x, -1))
+    library_with_grad = host_us(lambda: torch.cumsum(xg, -1).sum().backward())
+    launches = profiling.BIN_SCAN_LAUNCHES - launches0
+    print(f"phase19 host time a call ([64, 1, 4], {P19_HOST_CALLS} calls): bin_cumsum "
+          f"{wrapper:.1f} us ({launch:.1f} us of it the launch without autograd), torch.cumsum "
+          f"{library:.1f} us; with autograd, a scan, sum and backward: {with_grad:.1f} us against "
+          f"torch.cumsum's {library_with_grad:.1f} us; {launches} launches of its own counted; "
+          f"phase 19 {time.perf_counter() - t_phase:.1f} s {card}")
+    return {"max_abs_err": worst, "host_us": wrapper, **row}
+
+
 def main():
     import numpy as np
     import torch
@@ -2224,6 +2365,7 @@ def main():
     from nf_tpu_torch.ops import pwquad_sampler as ps
     from nf_tpu_torch.ops import pwquad_train as pt
     from nf_tpu_torch.training import optimizers
+    from nf_tpu_torch.utils import profiling
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
@@ -2914,6 +3056,12 @@ def main():
     # ---- phase 18: the per-op cost calibration on the op-chain kernel
     chain = phase18(dev, card)
 
+    # ---- phase 19: the bin-axis scan; every launch before it, the plain
+    # paths' and the trainers' of phases 5-17 among them
+    print(f"phases 5-18 launched the bin-axis scan {profiling.BIN_SCAN_LAUNCHES} times, phase "
+          f"14's mixture {mc_launches[3]} of them")
+    scan = phase19(dev, card)
+
     camel_t = timings["camel2d_trained"]
     camel_tt = train_t["camel2d_trained"]
     src = "nf_tpu_torch/ops/csrc/pwquad_train.cu"
@@ -2980,6 +3128,18 @@ def main():
         "bound_ms": chain["bound_ms"],
         "bound_by": chain["bound_by"],
         "library_ms": None,
+    }, {
+        "name": "bin_scan",
+        "route": "cuda",
+        "source": "nf_tpu_torch/ops/csrc/bin_scan.cu",
+        "replaces": "none: nf_tpu leaves the bin-axis jnp.cumsum to XLA",
+        "launches": mc_launches[3],
+        "max_abs_err": scan["max_abs_err"],
+        "ms": scan["ms"],
+        "plain_ms": scan["plain_ms"],
+        "bound_ms": scan["bound_ms"],
+        "bound_by": scan["bound_by"],
+        "library_ms": scan["library_ms"],
     }]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -19,7 +19,9 @@ Counterpart of ``nf_tpu.bijectors.coupling``.  Each cell kind has
 reference.  Bin lookups use ``torch.gather``; the bin index is clamped to the
 last bin (see :func:`pwlin_transform`).  The forward transforms take that
 factor's product with :func:`prod`, whose gradient reads nothing back from
-the device, so a trainer's epoch can be captured as a CUDA graph.
+the device, so a trainer's epoch can be captured as a CUDA graph.  Every
+cumulative sum over the bins is :func:`nf_tpu_torch.ops.bin_scan.bin_cumsum`:
+the plain ``torch.cumsum`` on the CPU, a hand-written kernel on the card.
 """
 
 from __future__ import annotations
@@ -28,6 +30,8 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from nf_tpu_torch.ops.bin_scan import bin_cumsum
 
 
 def positivity(z: torch.Tensor, act: str) -> torch.Tensor:
@@ -111,7 +115,7 @@ def affine_transform(z, xB):
 def pwlin_transform(z, xB, n_bins: int, act: str = "exp"):
     t = xB.shape[1]
     q = positivity(z.reshape(z.shape[0], t, n_bins), act)
-    qsum = torch.cumsum(q, dim=-1)
+    qsum = bin_cumsum(q)
     qnorm = qsum[:, :, -1:]
     q = q / (qnorm / n_bins)                      # PDF heights, mean 1
     qsum = F.pad(qsum / qnorm, (1, 0))            # CDF at bin edges
@@ -138,7 +142,7 @@ def pwquad_compute(v_raw, w_raw, xB, act: str = "exp"):
     n_bins = w_raw.shape[-1]
 
     w = positivity(w_raw, act)
-    wsum = torch.cumsum(w, dim=-1)
+    wsum = bin_cumsum(w)
     wnorm = wsum[:, :, -1:]
     w = w / wnorm
     wsum = wsum / wnorm
@@ -155,7 +159,7 @@ def pwquad_compute(v_raw, w_raw, xB, act: str = "exp"):
     w_b = _take(w, b)
     alphas = (xB - _take(F.pad(wsum, (1, 0)), b)) / w_b
     # CDF at the left edge of each bin (trapezoid cumsum of the normalized PDF)
-    vw = F.pad(torch.cumsum((v[:, :, :-1] + v[:, :, 1:]) * 0.5 * w, dim=-1), (1, 0))
+    vw = F.pad(bin_cumsum((v[:, :, :-1] + v[:, :, 1:]) * 0.5 * w), (1, 0))
     shift = _take(vw, b)
     v_lo = _take(v, b)
     v_hi = _take(v, b + 1)
@@ -214,7 +218,7 @@ def pwlin_inverse(z, yB, n_bins: int, act: str = "exp"):
     last bin, so yB == 1 stays in it), then a linear solve."""
     t = yB.shape[1]
     q = positivity(z.reshape(z.shape[0], t, n_bins), act)
-    qsum = torch.cumsum(q, dim=-1)
+    qsum = bin_cumsum(q)
     qnorm = qsum[:, :, -1:]
     q = q / (qnorm / n_bins)
     qsum = qsum / qnorm
@@ -235,7 +239,7 @@ def pwquad_invert(v_raw, w_raw, yB, act: str = "exp"):
     n_bins = w_raw.shape[-1]
 
     w = positivity(w_raw, act)
-    wsum = torch.cumsum(w, dim=-1)
+    wsum = bin_cumsum(w)
     wnorm = wsum[:, :, -1:]
     w = w / wnorm
     wsum = wsum / wnorm
@@ -244,7 +248,7 @@ def pwquad_invert(v_raw, w_raw, yB, act: str = "exp"):
     vnorm = torch.sum((v[:, :, :-1] + v[:, :, 1:]) * 0.5 * w, dim=-1, keepdim=True)
     v = v / vnorm
 
-    vw_body = torch.cumsum((v[:, :, :-1] + v[:, :, 1:]) * 0.5 * w, dim=-1)
+    vw_body = bin_cumsum((v[:, :, :-1] + v[:, :, 1:]) * 0.5 * w)
     b = torch.sum((vw_body <= yB.unsqueeze(-1)).long(), dim=-1)
     b = torch.clamp(b, max=n_bins - 1)
 

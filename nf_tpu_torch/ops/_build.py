@@ -2,7 +2,8 @@
 
 At first use, :func:`library` compiles every ``csrc/*.cu`` (the sampler and
 the training kernels, which include ``csrc/flow_plan.cuh``, the optimizer
-update and the op-chain kernel of the per-op cost calibration) with one
+update, the op-chain kernel of the per-op cost calibration and the bin-axis
+scan) with one
 nvcc process per source, all started together,
 
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \\
@@ -109,6 +110,8 @@ def library() -> ctypes.CDLL:
     lib.nf_optim_step.restype = i
     lib.nf_op_chain.argtypes = [i, i, i, i, i, p, p, p]
     lib.nf_op_chain.restype = i
+    lib.nf_bin_scan.argtypes = [p, p, i64, i, i, i, p]
+    lib.nf_bin_scan.restype = i
     for limits in (lib.nf_pwquad_sampler_limits, lib.nf_pwquad_train_limits):
         limits.argtypes = [ctypes.POINTER(ctypes.c_int)]
         limits.restype = i

@@ -18,6 +18,8 @@ tqdm bars and datetime deltas (SURVEY.md section 5).  Here:
     span;
   * :data:`FLOW_INVERSES`, the count of flow inverse evaluations
     (``flows.model.inverse``), kept on the host;
+  * :data:`BIN_SCAN_LAUNCHES`, the count of launches of the bin-axis scan
+    kernel (``ops.bin_scan``), forward and reverse, kept on the host;
   * a wall-clock timer that waits for the device work of its outputs, so
     timings measure compute rather than launch.
 """
@@ -43,6 +45,11 @@ HOST_READS = 0
 # reset it): a host-side count, no synchronisation and no device work.  The
 # learned multi-channel mixture makes C^2 of them a minibatch.
 FLOW_INVERSES = 0
+
+# Launches of the bin-axis scan kernel (nf_tpu_torch.ops.bin_scan), forward
+# and reverse, since import (or since a caller reset it): a host-side count.
+# The plain version, which runs for CPU tensors, adds nothing.
+BIN_SCAN_LAUNCHES = 0
 
 _NO_SPAN = contextlib.nullcontext()
 
