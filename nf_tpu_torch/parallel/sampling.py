@@ -16,11 +16,14 @@ single-device draw of the global batch with the same seed.
     place of nf_tpu's ``SEED_STRIDE``.
   * The folded forward (``"folded"``, the default on the CPU): every rank
     draws the global latents from its generator (seeded alike on every
-    rank) through :func:`_uniform` and keeps its rows.  Tests replay
-    nf_tpu's per-device ``fold_in`` draws through that hook.
+    rank) through :func:`nf_tpu_torch.flows.sampling._uniform` and keeps its
+    rows.  Tests replay nf_tpu's per-device ``fold_in`` draws through that
+    hook.
 
-Sharded sampling is eval-mode only: the train-mode forward normalises with
-one replica's batch statistics.
+The method is :func:`nf_tpu_torch.flows.sampling.resolve_method`'s on an
+eval-only path and the draw :func:`~nf_tpu_torch.flows.sampling.make_draw`'s
+over the rank's rows.  Sharded sampling is eval-mode only: the train-mode
+forward normalises with one replica's batch statistics.
 """
 
 from __future__ import annotations
@@ -39,62 +42,14 @@ _GOLDEN = 0x9E3779B9
 _MASK = 0xFFFFFFFF
 
 
-def _uniform(generator, shape, dtype, device):
-    """The global latents of one draw on the plain path (every rank alike)."""
-    return torch.rand(shape, generator=generator, dtype=dtype, device=device)
-
-
-def resolve_method(flow, model, method):
-    """``None`` / ``"auto"``: the fused kernel on a CUDA model, the folded
-    forward elsewhere; ``"fused"`` and ``"folded"`` as given.  Anything else
-    (the train-mode stateful forward) raises ``ValueError``."""
-    if method in (None, "auto"):
-        return fsampling.default_method(flow, model_device(model))
-    if method not in ("fused", "folded"):
-        raise ValueError(f"mesh= sharded sampling is eval-mode only ('auto'/'fused'/"
-                         f"'folded'), not {method!r}: the stateful train-mode forward needs "
-                         "a single replica's batch statistics")
-    return method
-
-
-def _make_local_draw(flow, model, group, n, method, dtype, layout="batch_major"):
-    """Returns ``start(generator) -> draw``, where ``start`` fixes the call's
-    randomness and ``draw(i) -> (x [rows, n_flow], jac [rows])`` maps this
-    rank's rows of the ``i``-th global batch of ``n``.  With
-    ``layout="dim_major"`` the fused kernel writes ``x`` dimension-major and
-    ``x`` is its transposed view, as ``integrate`` reads it.  ``method`` is
-    ``"fused"`` or ``"folded"``."""
-    lo, hi = local_rows(n, group, "n" if layout == "batch_major" else "neval")
-    if method == "fused":
-        from nf_tpu_torch.ops.pwquad_sampler import build_sampler
-        sampler = build_sampler(flow, model, layout=layout)
-
-        def start(generator):
-            seed = fsampling.seed_from(generator)
-
-            def draw(i):
-                x, jac = sampler(seed, hi - lo, offset=i * n + lo)
-                return (x.T if layout == "dim_major" else x), jac
-            return draw
-    else:
-        from nf_tpu_torch.flows.fast_eval import make_folded_forward
-        fwd = make_folded_forward(flow, model, dtype)
-        device = model_device(model)
-
-        def start(generator):
-            def draw(i):
-                return fwd(_uniform(generator, (n, flow.n_flow), dtype, device)[lo:hi])
-            return draw
-    return start
-
-
 def make_dp_sampler(flow, model, mesh, n, method="auto", dtype=torch.float32):
     """Build ``fn(generator) -> (x [n, n_flow], jac [n])``: this rank maps
     its rows of the draw, and the global arrays come back on every rank (a
     gather in rank order).  ``n`` must divide by the mesh size."""
-    method = resolve_method(flow, model, method)
+    method = fsampling.resolve_method(flow, model_device(model), method, eval_only=True)
     group = group_of(mesh)
-    start = _make_local_draw(flow, model, group, int(n), method, dtype)
+    start = fsampling.make_draw(flow, model, method, n, local_rows(int(n), group, "n"),
+                                dtype=dtype)
 
     def fn(generator):
         with torch.no_grad():
@@ -118,10 +73,11 @@ def make_dp_integrator(flow, model, f, mesh, nitn, neval, method="auto",
     global mean and unbiased variance of each iteration from the all-reduced
     ``(sum f J, sum (f J)^2)`` (one all-reduce for all iterations).
     ``neval`` must divide by the mesh size."""
-    method = resolve_method(flow, model, method)
+    method = fsampling.resolve_method(flow, model_device(model), method, eval_only=True)
     group = group_of(mesh)
     neval = int(neval)
-    start = _make_local_draw(flow, model, group, neval, method, dtype, layout="dim_major")
+    start = fsampling.make_draw(flow, model, method, neval, local_rows(neval, group, "neval"),
+                                layout="dim_major", dtype=dtype)
 
     def fn(generator):
         with torch.no_grad():

@@ -246,21 +246,10 @@ class BasicManager:
         return torch.Generator(device=self.device).manual_seed(seed)
 
     def _resolve_method(self, method, train):
-        """``None`` / ``'auto'``: the fused kernel wherever
-        :func:`~nf_tpu_torch.flows.sampling.default_method` picks it (a CUDA
-        device, train mode not asked for); elsewhere the reference-parity
-        stateful forward.  ``'stateful'`` is an alias of ``'reference'``."""
-        if method in (None, "auto"):
-            if fsampling.default_method(self._flow, self.device, train is True) == "fused":
-                return "fused"
-            return "reference"
-        if method == "stateful":
-            return "reference"
-        if method not in ("fused", "folded", "reference"):
-            raise ValueError(
-                f"unknown sampling method {method!r}; expected one of "
-                "None/'auto', 'fused', 'folded', 'reference'/'stateful'")
-        return method
+        """The draw of ``sample`` and ``integrate``:
+        :func:`~nf_tpu_torch.flows.sampling.resolve_method` on the manager's
+        device, train-mode BatchNorm asked for by ``train=True``."""
+        return fsampling.resolve_method(self._flow, self.device, method, train is True)
 
     @profiling.spanned("nf.sample")
     def sample(self, n, seed=None, model=None, train=None, method=None,
@@ -288,12 +277,10 @@ class BasicManager:
                                            dtype=self.dtype)
             return fn(self._generator(seed))
         method = self._resolve_method(method, train)
-        if method == "reference":
-            method = "stateful"
-            train = (not self.best_eval_mode) if train is None else train
-        fn = fsampling.make_sampler(self._flow, model, n, method,
-                                    train=bool(train), dtype=self.dtype)
-        return fn(self._generator(seed))
+        train = (not self.best_eval_mode) if train is None else train
+        start = fsampling.make_draw(self._flow, model, method, n, train=bool(train),
+                                    dtype=self.dtype)
+        return start(self._generator(seed))(0)
 
     # -- the trainer (reference manager.py:66-378) --------------------------
 
@@ -816,23 +803,9 @@ class BasicManager:
         model = self.best_model
         means, variances = [], []
         with torch.no_grad():
-            if method == "fused":
-                from nf_tpu_torch.ops.pwquad_sampler import build_sampler
-                sampler = build_sampler(self._flow, model, layout="dim_major")
-                seed0 = fsampling.seed_from(gen)
-
-                def draw(i):
-                    x_dm, jacv = sampler(seed0, neval, offset=i * neval)
-                    return x_dm.T, jacv
-            else:
-                sampler = fsampling.make_sampler(
-                    self._flow, model, neval,
-                    "folded" if method == "folded" else "stateful",
-                    train=not self.best_eval_mode,   # reference never calls .eval()
-                    dtype=self.dtype)
-
-                def draw(i):
-                    return sampler(gen)
+            # train: the reference never calls .eval()
+            draw = fsampling.make_draw(self._flow, model, method, neval, layout="dim_major",
+                                       train=not self.best_eval_mode, dtype=self.dtype)(gen)
             with profiling.span("nf.integrate.iterations"):
                 for i in range(nitn):
                     x, jacv = draw(i)
@@ -860,7 +833,7 @@ class BasicManager:
             0, 2 ** 31 - 1, (1,), generator=self._gen, device=self.device))
         model = self.best_model
         with torch.no_grad():
-            if self.device.type == "cuda":
+            if fsampling.resolve_method(self._flow, self.device, None, eval_only=True) == "fused":
                 from nf_tpu_torch.ops.pwquad_sampler import build_sampler
                 forward = build_sampler(self._flow, model, take_latents=True)
             else:

@@ -36,14 +36,16 @@ from nf_tpu_torch.utils import profiling
 
 
 def _make_draw(flow, model, n, train, method):
-    """Proposal sampler ``draw(generator) -> (x, jac)`` of ``n`` points:
-    ``method=None`` is the stateful forward in the model's dtype (its
-    BatchNorm buffers left as they are), any other a method of
-    :func:`nf_tpu_torch.flows.sampling.make_sampler`."""
+    """Proposal sampler ``draw(generator) -> (x, jac)`` of ``n`` points, a
+    fresh :func:`nf_tpu_torch.flows.sampling.make_draw` start per call (the
+    fused kernel: a fresh seed per batch): ``method=None`` is the stateful
+    forward in the model's dtype (its BatchNorm buffers left as they are),
+    any other method of ``make_draw`` draws in float32."""
+    dtype = torch.float32
     if method is None:
-        return fsampling.make_sampler(flow, model, n, "stateful", train=train,
-                                      dtype=next(model.parameters()).dtype)
-    return fsampling.make_sampler(flow, model, n, method, train=train)
+        method, dtype = "stateful", next(model.parameters()).dtype
+    start = fsampling.make_draw(flow, model, method, n, train=train, dtype=dtype)
+    return lambda generator: start(generator)(0)
 
 
 def _uniform(generator, n, dtype, device):
@@ -174,8 +176,9 @@ def generate_unweighted(flow, model, f, generator, n_events, w_max=None, train=F
             compact = False
     else:
         if method == "auto":
-            method = "fused" if (not train and model_device(model).type == "cuda"
-                                 and fsampling.supported_by_kernel(flow)) else None
+            method = fsampling.resolve_method(flow, model_device(model), method, train)
+            if method == "stateful":   # in the model's dtype
+                method = None
 
         def draw_of(n):
             return _make_draw(flow, model, n, train, method)

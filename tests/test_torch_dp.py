@@ -12,7 +12,7 @@ parameters and draws as ``.npz`` files.  Held:
     tolerances (a world of two: a gradient off by the world size fails);
   * one ``make_dp_train_step`` with Adamax against nf_tpu's;
   * ``dp_sample`` and ``dp_integrate`` against nf_tpu's on nf_tpu's
-    per-device draws, replayed through ``parallel.sampling._uniform``;
+    per-device draws, replayed through ``flows.sampling._uniform``;
   * both trainers at the default cadence and at ``epochs_per_sync=1``,
     ``sample``, ``integrate`` and ``generate_unweighted`` under ``mesh=``
     and two epochs of ``train_multichannel`` against the
@@ -134,9 +134,9 @@ WORKER = COMMON + textwrap.dedent("""
     import torch.distributed as dist
 
     from nf_tpu_torch.flows import factory
+    from nf_tpu_torch.flows import sampling as fsampling
     from nf_tpu_torch.parallel import (dp_integrate, dp_sample, initialize_distributed,
                                        make_dp_loss, make_dp_train_step)
-    from nf_tpu_torch.parallel import sampling as psampling
     from nf_tpu_torch.parallel.dp import average_gradients
     from nf_tpu_torch.parallel.mesh import group_of, shard_rows
 
@@ -176,7 +176,7 @@ WORKER = COMMON + textwrap.dedent("""
         out["step." + k] = p.detach().numpy()
 
     # nf_tpu's per-device draws, concatenated in device order
-    uniform = psampling._uniform
+    uniform = fsampling._uniform
     draws = [inp["sample_w"]] + list(inp["integ_w"])
 
     def replay(generator, shape, dtype, device):
@@ -184,14 +184,14 @@ WORKER = COMMON + textwrap.dedent("""
         assert tuple(shape) == a.shape and dtype == torch.float64
         return torch.from_numpy(a)
 
-    psampling._uniform = replay
+    fsampling._uniform = replay
     m = model()
     x, jac = dp_sample(m.flow, m, mesh, 256, seed=7, method="folded", dtype=torch.float64)
     out["dp_sample.x"], out["dp_sample.jac"] = x.numpy(), jac.numpy()
     out["dp_integrate"] = np.array(dp_integrate(m.flow, m, camel, mesh, 3, 256, seed=5,
                                                 method="folded", dtype=torch.float64))
     assert not draws
-    psampling._uniform = uniform
+    fsampling._uniform = uniform
 
     out.update(scenarios(mesh))
     np.savez(f"{outdir}/worker{rank}.npz", **out)

@@ -214,7 +214,7 @@ def test_sample_paths(manager):
     torch.testing.assert_close(x_e, x_r, rtol=1e-9, atol=1e-12)
     with pytest.raises(ValueError):
         manager.sample(10, method="qmc")
-    assert manager._resolve_method(None, None) == "reference"
+    assert manager._resolve_method(None, None) == "stateful"
 
 
 def test_camel_trains_and_integrates():

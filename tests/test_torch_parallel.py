@@ -96,8 +96,8 @@ def test_rank_streams_concatenate_to_the_single_device_draw(manager, monkeypatch
     latents."""
     n, world = 64, 4
     model = manager.best_model
-    ref = fsampling.make_sampler(manager._flow, model, n, method, dtype=torch.float64)(
-        torch.Generator().manual_seed(9))
+    ref = fsampling.make_draw(manager._flow, model, method, n, dtype=torch.float64)(
+        torch.Generator().manual_seed(9))(0)
     monkeypatch.setattr(psampling, "group_of", lambda mesh: "dp")
     monkeypatch.setattr(psampling, "all_gather_rows", lambda x, group: x)
     shards = []
