@@ -369,7 +369,7 @@ def phase13(dev, card, gen, hold_train, perturb_bn):
     train_kw = dict(log=False, batch_size=ZZ_BATCH, mini_batch_size=ZZ_MINI,
                     pretty_progressbar=False, integrate=False, preburn_time=0, kill_counter=50,
                     loss_mode="var", select_best_by="ess")
-    ps.LAUNCHES = pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = 0
+    ps.LAUNCHES = ps.SAMPLER_TILED_LAUNCHES = pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = 0
     sync()
     t0 = time.perf_counter()
     NF_z._train_variance_forward_seq(zz, optimizers.adamax(5e-4, 1e-4), epochs=ZZ_BATCH_EPOCHS,
@@ -407,6 +407,8 @@ def phase13(dev, card, gen, hold_train, perturb_bn):
           f"sampler {eventgen} times")
     check(launches[1:] == (stale_ran * n_mb + (stale_ran - 1) // 4 + 1, stale_ran * n_mb),
           f"zz stale trainer launched fwd/bwd {launches[1:]}")
+    check(ps.SAMPLER_TILED_LAUNCHES == launches[0],
+          f"zz: {ps.SAMPLER_TILED_LAUNCHES} of {launches[0]} sampler launches tiled")
     check(x_s.shape == (N_PS, n_flow) and bool(torch.isfinite(jac_s).all())
           and bool(((x_s >= 0) & (x_s <= 1)).all()), "zz sample() output")
     check(len(ev) >= 4096 and ev.shape[1] == n_flow and 0 < eff <= 1, "zz unweighted events")
@@ -722,7 +724,7 @@ def phase14(dev, card, gen, hold_train, perturb_bn):
     train_kw = dict(log=False, batch_size=MC_BATCH, mini_batch_size=MC_BATCH,
                     pretty_progressbar=False, integrate=False, preburn_time=0, kill_counter=50,
                     loss_mode="kl", select_best_by="ess")
-    ps.LAUNCHES = pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = 0
+    ps.LAUNCHES = ps.SAMPLER_TILED_LAUNCHES = pt.FWD_LAUNCHES = pt.BWD_LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -753,6 +755,8 @@ def phase14(dev, card, gen, hold_train, perturb_bn):
           f"{launches[0]} fwd {launches[1]} bwd {launches[2]}; peak memory {peak:.2f} GiB {card}")
     check(launches == (1 + 8, stale_ran + (stale_ran - 1) // 4 + 1, stale_ran),
           f"shared flow launched sampler/fwd/bwd {launches}")
+    check(ps.SAMPLER_TILED_LAUNCHES == launches[0],
+          f"shared flow: {ps.SAMPLER_TILED_LAUNCHES} of {launches[0]} sampler launches tiled")
     check(x_s.shape == (1 << 17, n_flow) and bool(torch.isfinite(jac_s).all())
           and bool(torch.isfinite(wf).all()), "shared flow sample() output")
 
@@ -2465,7 +2469,7 @@ def main():
                    preburn_time=20, integrate=False, pretty_progressbar=False)
     NF = PWQuadManager(n_flow=2, seed=0, device="cuda")
     NF.create_model(2, 4, [3] * 3)
-    ps.LAUNCHES = optim_step.LAUNCHES = 0
+    ps.LAUNCHES = ps.SAMPLER_TILED_LAUNCHES = optim_step.LAUNCHES = 0
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     NF._train_variance_forward_seq(camel, optimizers.adamax(2e-3, 1e-4), **main_kw)
@@ -2513,6 +2517,8 @@ def main():
         check(math.isfinite(sig) and err > 0, "integrate finite")
         check(abs(sig - exact) <= 5 * err + 0.01 * exact, "|sig - exact| <= 5 err + 1%")
     check(launches >= 1 + 10 + 8, f"main path launched the kernel {launches} < 19 times")
+    check(ps.SAMPLER_TILED_LAUNCHES == 0,
+          f"main path (camel) launched the tiled sampler {ps.SAMPLER_TILED_LAUNCHES} times")
 
     # ---- phase 5b: the kernel against its plain version at the main path's
     # sizes, on the trained model.  The grid holds at most 2^20 threads, so

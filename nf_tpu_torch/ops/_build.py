@@ -93,6 +93,11 @@ def library() -> ctypes.CDLL:
     lib.nf_pwquad_sampler.argtypes = [p, i, p, i, p, i, p, u64, u64, p, p, i64, i, i, i, i, i,
                                       i, i64, i, p]
     lib.nf_pwquad_sampler.restype = i
+    lib.nf_pwquad_sampler_tiled.argtypes = [p, i, p, i, p, p, u64, u64, p, p, i64, i, i, i, i,
+                                            i, i, i, i, i64, i, p]
+    lib.nf_pwquad_sampler_tiled.restype = i
+    lib.nf_pwquad_sampler_tiled_occupancy.argtypes = [i, i, i64, ctypes.POINTER(ctypes.c_int)]
+    lib.nf_pwquad_sampler_tiled_occupancy.restype = i
     lib.nf_pwquad_train_fwd.argtypes = [p, i, p, i, p, i, p, p, p, p, p, i, i, i64, i, i, i,
                                         i, i, i, i64, p]
     lib.nf_pwquad_train_fwd.restype = i
@@ -126,7 +131,7 @@ def _check_limits(lib):
     from nf_tpu_torch.ops import pwquad_sampler as ps
     from nf_tpu_torch.ops import pwquad_train as pt
 
-    sampler = (ps.SAMPLER_MAX_BLOCK,)
+    sampler = (ps.SAMPLER_MAX_BLOCK, ps.SAMPLER_TILED_BLOCK, ps.SAMPLER_TILED_MIN_BLOCKS)
     train = (pt.BWD_LOCAL_FLOW, pt.BWD_LOCAL_HIDDEN, pt.BWD_LOCAL_BINS, pt.BWD_LOCAL_ACTS,
              pt.FWD_MAX_BLOCK, pt.BWD_MAX_BLOCK, pt.BWD_TILED_MAX_FIN, pt.BWD_TILED_MAX_BLOCK,
              *(pt.BWD_TILED_MIN_BLOCKS[rt] for rt in (1, 2, 4)))

@@ -26,9 +26,14 @@
 // VJP reads), and apply_dim (its output), so bins and pdfs agree across the
 // sampler, the training forward and the backward's recompute.  On an
 // NVIDIA H100 80GB HBM3 at 700 W (PERF.md section 6) the three kernels kept
-// their output bits when they moved onto these helpers, and the tiled
-// sampler built on them reads 5.25 ms per 2^21 flagship samples, where the
-// per-thread sampler with its own copy of this maths read 12.08 ms.
+// their output bits when they moved onto these helpers, and the sampler on
+// its shared-memory tiles reads 5.25 ms per 2^21 flagship samples, where the
+// per-thread sampler with its own copy of this maths read 12.08 ms.  The
+// block products in register tiles (tile_dense) serve the tiled backward
+// and the tiled sampler: on the 2 -> 4 plan the sampler's products went from
+// four L1 loads and one shared-memory load per four FMAs (dense, weights
+// through L1) to two shared-memory float4 loads per 16, 111.1-111.7 ->
+// 36.1 ms per 2^21, with the same bits.
 //
 // Precision: expf / sqrtf / atanf and IEEE division; nothing here may be
 // built with --use_fast_math, since reduced-precision maths diverges through
@@ -65,8 +70,9 @@ __device__ __forceinline__ float last_logit(const float* __restrict__ W, const i
 
 // Column of a feature-major array: element k is k strides down.  With an
 // int stride, a column of a shared-memory tile (rows of blockDim.x + 1
-// floats); with a long long stride, a thread's slice of a device workspace
-// (element k of grid thread g at k * G + g).
+// floats, or + 4 in the tiled kernels); with a long long stride, a
+// thread's slice of a device workspace (element k of grid thread g at
+// k * G + g).
 template <class I>
 struct Col {
   float* p;
@@ -275,6 +281,85 @@ __device__ __forceinline__ void dense_from(bool mapped, bool relu_in,
     dense<W_SMEM, false, true>(w, b, ld, step, fan_in, n_out, in, xmap, out, S1, relu);
   else
     dense<W_SMEM, false, false>(w, b, ld, step, fan_in, n_out, in, xmap, out, S1, relu);
+}
+
+// ---------------------------------------------------------------------------
+// Block products in register tiles, for the tiled sampler and the tiled
+// backward, and the padded copies of the weights they read.  Their tiles
+// are feature-major, a row of S floats per feature (S a multiple of four,
+// so four samples of a row are one float4), and a thread's task is four
+// rows by four samples: one float4 of a tile and four weights feed 16
+// FMAs.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// c[i][e] = fmaf(a[i], b[e], c[i][e])
+__device__ __forceinline__ void outer4(float (&c)[4][4], float4 a, float4 b) {
+  const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[i][e] = fmaf(av[i], bv[e], c[i][e]);
+}
+
+// out[r][s] = b[r] + sum_k in[k][s] w[k ld + r step] for r < n_out and the
+// tile's samples, through a ReLU where relu: bias first, k ascending, as
+// the forward sums it.  With W_SMEM, w is a copy padded to rows of ld, a
+// multiple of four, and step is 1.  A task is four rows by four samples.
+// Input row k is in's row xmap[k] where MAPPED (the sampler's first layer
+// reads the state tile through its row table).
+template <bool W_SMEM, bool MAPPED = false>
+__device__ __forceinline__ void tile_dense(const float* __restrict__ w,
+                                           const float* __restrict__ b, int ld, int step,
+                                           int fan_in, int n_out, const float* in, float* out,
+                                           int S, bool relu, const int* xmap = nullptr) {
+  const int B = blockDim.x, SG = B >> 2;
+  const int n_tasks = ((n_out + 3) >> 2) * SG;
+  for (int task = threadIdx.x; task < n_tasks; task += B) {
+    const int rg = task / SG, r0 = rg << 2, s0 = (task - rg * SG) << 2;
+    const int left = n_out - r0;
+    const int j1 = min(1, left - 1) * step, j2 = min(2, left - 1) * step;
+    const int j3 = min(3, left - 1) * step;
+    const float4 bias = load4<W_SMEM>(b + r0 * step, j1, j2, j3);
+    const float bv[4] = {bias.x, bias.y, bias.z, bias.w};
+    float a[4][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) a[c][e] = bv[c];
+    const float* wr = w + r0 * step;
+#pragma unroll 2
+    for (int k = 0; k < fan_in; ++k)
+      outer4(a, load4<W_SMEM>(wr + k * ld, j1, j2, j3),
+             ld4(in + (MAPPED ? xmap[k] : k) * S + s0));
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      if (c < left) {
+        float4 o = make_float4(a[c][0], a[c][1], a[c][2], a[c][3]);
+        if (relu)
+          o = make_float4(fmaxf(o.x, 0.0f), fmaxf(o.y, 0.0f), fmaxf(o.z, 0.0f), fmaxf(o.w, 0.0f));
+        *reinterpret_cast<float4*>(out + (r0 + c) * S + s0) = o;
+      }
+    }
+  }
+}
+
+// A padded copy of n_rows rows of ld floats into dst: row r < n_rows - 1 is
+// the flat weights' row at w_off + r * fan_out, the last row the bias at
+// b_off; column j < width is the flat layer's column col0 + j * step, the
+// rest 0.  Every thread of the block calls it; a barrier must follow.
+__device__ __forceinline__ void copy_layer(float* dst, const float* __restrict__ weights,
+                                           int n_rows, int ld, int width, int w_off, int b_off,
+                                           int fan_out, int col0, int step) {
+  for (int e = threadIdx.x; e < n_rows * ld; e += blockDim.x) {
+    const int r = e / ld, j = e - r * ld;
+    dst[e] = j < width ? __ldg(weights + (r < n_rows - 1 ? w_off + r * fan_out : b_off) + col0
+                               + j * step)
+                       : 0.0f;
+  }
 }
 
 // The last layer of a cell (L: its descriptor entry) and the cell's

@@ -1129,10 +1129,12 @@ train_bwd_ws_kernel(const int* __restrict__ desc, int desc_len,
 //                the other hidden layers' outputs, computed again.
 // The matrix products are block products in which each thread owns a
 // register tile of four rows by four samples (or four by four weights): one
-// float4 of a tile and four weights feed 16 FMAs.  Every sum keeps the
-// per-sample order of the workspace kernel (bias first, then the inputs in
-// order; the cotangent over the dimensions and logits in order), so a
-// sample's latent cotangent is the same whatever the launch.
+// float4 of a tile and four weights feed 16 FMAs (flow_plan.cuh's
+// tile_dense, shared with the tiled sampler, and tile_back / tile_dw
+// below).  Every sum keeps the per-sample order of the workspace kernel
+// (bias first, then the inputs in order; the cotangent over the dimensions
+// and logits in order), so a sample's latent cotangent is the same
+// whatever the launch.
 // ---------------------------------------------------------------------------
 
 #define BWD_TILED_MAX_BLOCK 128  // threads (samples) per tiled backward block
@@ -1142,64 +1144,12 @@ train_bwd_ws_kernel(const int* __restrict__ desc, int desc_len,
 // registers for three, 255 for two.
 #define BWD_TILED_MIN_BLOCKS(RT) ((RT) == 4 ? 2 : 3)
 
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// c[i][e] = fmaf(a[i], b[e], c[i][e])
-__device__ __forceinline__ void outer4(float (&c)[4][4], float4 a, float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) c[i][e] = fmaf(av[i], bv[e], c[i][e]);
-}
-
 // Weights k0 .. k0 + 3 of one column, rows i1, i2, i3 floats apart: from
 // shared memory, or through L1.
 template <bool W_SMEM>
 __device__ __forceinline__ float4 load_col4(const float* __restrict__ p, int i1, int i2, int i3) {
   if (W_SMEM) return make_float4(p[0], p[i1], p[i2], p[i3]);
   return make_float4(__ldg(p), __ldg(p + i1), __ldg(p + i2), __ldg(p + i3));
-}
-
-// out[r][s] = b[r] + sum_k in[k][s] w[k ld + r step] for r < n_out and the
-// tile's samples, through a ReLU where relu: bias first, k ascending, as
-// the forward sums it.  With W_SMEM, w is a copy padded to rows of ld, a
-// multiple of four, and step is 1.  A task is four rows by four samples.
-template <bool W_SMEM>
-__device__ __forceinline__ void tile_dense(const float* __restrict__ w,
-                                           const float* __restrict__ b, int ld, int step,
-                                           int fan_in, int n_out, const float* in, float* out,
-                                           int S, bool relu) {
-  const int B = blockDim.x, SG = B >> 2;
-  const int n_tasks = ((n_out + 3) >> 2) * SG;
-  for (int task = threadIdx.x; task < n_tasks; task += B) {
-    const int rg = task / SG, r0 = rg << 2, s0 = (task - rg * SG) << 2;
-    const int left = n_out - r0;
-    const int j1 = min(1, left - 1) * step, j2 = min(2, left - 1) * step;
-    const int j3 = min(3, left - 1) * step;
-    const float4 bias = load4<W_SMEM>(b + r0 * step, j1, j2, j3);
-    const float bv[4] = {bias.x, bias.y, bias.z, bias.w};
-    float a[4][4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) a[c][e] = bv[c];
-    const float* wr = w + r0 * step;
-#pragma unroll 2
-    for (int k = 0; k < fan_in; ++k)
-      outer4(a, load4<W_SMEM>(wr + k * ld, j1, j2, j3), ld4(in + k * S + s0));
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {
-      if (c < left) {
-        float4 o = make_float4(a[c][0], a[c][1], a[c][2], a[c][3]);
-        if (relu)
-          o = make_float4(fmaxf(o.x, 0.0f), fmaxf(o.y, 0.0f), fmaxf(o.z, 0.0f), fmaxf(o.w, 0.0f));
-        *reinterpret_cast<float4*>(out + (r0 + c) * S + s0) = o;
-      }
-    }
-  }
 }
 
 // a[c][e] = fmaf(w[(k0 + c) ld + r step], g[r][s0 + e], a[c][e]) for
@@ -1291,21 +1241,6 @@ struct BwdTile {
 
 // Floats of a hidden layer's padded copy (L: its descriptor entry).
 __device__ __forceinline__ int hidden_floats(const int* L) { return (L[0] + 1) * round4(L[1]); }
-
-// A padded copy of n_rows rows of ld floats into dst: row r < n_rows - 1 is
-// the flat weights' row at w_off + r * fan_out, the last row the bias at
-// b_off; column j < width is the flat layer's column col0 + j * step, the
-// rest 0.  Every thread of the block calls it; a barrier must follow.
-__device__ __forceinline__ void copy_layer(float* dst, const float* __restrict__ weights,
-                                           int n_rows, int ld, int width, int w_off, int b_off,
-                                           int fan_out, int col0, int step) {
-  for (int e = threadIdx.x; e < n_rows * ld; e += blockDim.x) {
-    const int r = e / ld, j = e - r * ld;
-    dst[e] = j < width ? __ldg(weights + (r < n_rows - 1 ? w_off + r * fan_out : b_off) + col0
-                               + j * step)
-                       : 0.0f;
-  }
-}
 
 // The outputs of a cell's hidden layers 0 .. count - 1 (L0: the first
 // layer's entry): the last hidden layer's into H, the others stacked in V,

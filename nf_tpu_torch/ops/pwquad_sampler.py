@@ -16,11 +16,15 @@ Jacobian once.  It replaces nf_tpu's Pallas TPU kernel
     that stands in for the permutations), :func:`tile_rows` and
     :func:`padded_weights`; and the launch rule, :func:`best_launch` over
     block sizes and the weights' place by :func:`blocks_per_sm`;
-  * :class:`SamplerPlan`, with :func:`sampler_smem_bytes` and
-    :func:`sampler_config`, the sampler's launch;
+  * :class:`SamplerPlan`, with its kernel chosen by the plan's widths
+    (:func:`sampler_kernel_for`: the per-thread kernel, or the tiled one
+    for wide plans) and that kernel's launch (:func:`sampler_smem_bytes` and
+    :func:`sampler_config`; :func:`sampler_tiled_smem_bytes` and
+    :func:`sampler_tiled_config`);
   * :func:`philox_uniform`: the kernel's Philox4x32-10 latent stream in
     numpy, so the seeded variant has an exact plain version;
-  * :func:`build_sampler`: checks, allocation, launch and the launch count.
+  * :func:`build_sampler`: checks, allocation, launch and the launch counts
+    (``LAUNCHES``; ``SAMPLER_TILED_LAUNCHES`` the tiled kernel's alone).
     A model on the CPU takes the plain version
     (:func:`nf_tpu_torch.flows.fast_eval.make_folded_forward`); a model on a
     CUDA device launches the kernel or raises.
@@ -39,8 +43,10 @@ from nf_tpu_torch import interop
 from nf_tpu_torch.flows.model import permutation_source
 from nf_tpu_torch.utils import profiling
 
-# Launches of the CUDA kernel since import (or since a caller reset it).
+# Launches of the CUDA kernels since import (or since a caller reset them):
+# either kernel, and the tiled kernel alone.
 LAUNCHES = 0
+SAMPLER_TILED_LAUNCHES = 0
 
 # The launch shape compiled into csrc/pwquad_sampler.cu, the block sizes
 # sampler_config picks from, and the most threads of its grid (each block
@@ -48,6 +54,19 @@ LAUNCHES = 0
 SAMPLER_MAX_BLOCK = 512
 SAMPLER_BLOCKS = (128, 256, 512)
 SAMPLER_MAX_THREADS = 1 << 20
+# The tiled kernel's largest block (compiled in), the block sizes
+# sampler_tiled_config picks from, and the blocks of SAMPLER_TILED_BLOCK an
+# SM holds by its registers: the minimum its __launch_bounds__ asks of
+# ptxas, which then caps a thread at 128 registers (checked against the CUDA
+# occupancy calculator by a card test).
+SAMPLER_TILED_BLOCK = 128
+SAMPLER_TILED_BLOCKS = (128, 64)
+SAMPLER_TILED_MIN_BLOCKS = 4
+# A plan with a layer (a hidden layer's outputs or a last layer's inputs)
+# at least this wide runs the tiled kernel where a launch of it fits: its
+# products in register tiles pay for the barriers they add.  Narrower
+# plans (camel, the 10-D flagship) keep the per-thread kernel.
+SAMPLER_TILED_MIN_WIDTH = 32
 # Block sizes every kernel's launch rule falls back to where none of its own
 # fits shared memory.
 SMALL_BLOCKS = (64, 32)
@@ -258,23 +277,24 @@ def blocks_per_sm(smem, block, sm_threads=SM_THREADS):
     return min(SM_SMEM // (smem + SMEM_PER_BLOCK_RESERVED), sm_threads // block, SM_BLOCKS)
 
 
-def best_launch(blocks, smem_bytes, smem_first=False, what="kernel", sm_threads=SM_THREADS):
+def best_launch(blocks, smem_bytes, smem_first=False, what="kernel", sm_threads=SM_THREADS,
+                min_blocks=2):
     """Of the block sizes ``blocks``, with the weights in shared memory or
     read through L1, the launch ``(block, w_smem)`` that keeps the most
-    threads resident on an SM while at least two blocks share it (so that
-    one block's barrier leaves the SM another's work); on a tie, the weights
-    in shared memory, then the largest block (fewer barriers per sample).
-    With ``smem_first``, the weights in shared memory come before the
-    resident threads.  ``smem_bytes(block, w_smem)`` is a block's shared
-    memory; only launches that fit it are candidates.  Where none of
-    ``blocks`` fits, :data:`SMALL_BLOCKS` are
+    threads resident on an SM while at least ``min_blocks`` (two) blocks
+    share it (so that one block's barrier leaves the SM another's work); on
+    a tie, the weights in shared memory, then the largest block (fewer
+    barriers per sample).  With ``smem_first``, the weights in shared memory
+    come before the resident threads.  ``smem_bytes(block, w_smem)`` is a
+    block's shared memory; only launches that fit it are candidates.  Where
+    none of ``blocks`` fits, :data:`SMALL_BLOCKS` are
     tried by the same rule; where none of those fits either, raises
     ``ValueError``.  ``sm_threads``: as for :func:`blocks_per_sm`."""
     def rank(config):
         block, w_smem = config
         k = blocks_per_sm(smem_bytes(block, w_smem), block, sm_threads)
-        return (k >= 2, w_smem, k * block, block) if smem_first else \
-            (k >= 2, k * block, w_smem, block)
+        return (k >= min_blocks, w_smem, k * block, block) if smem_first else \
+            (k >= min_blocks, k * block, w_smem, block)
 
     for sizes in (blocks, SMALL_BLOCKS):
         configs = [(b, w) for b in sizes for w in (True, False)
@@ -288,17 +308,20 @@ def best_launch(blocks, smem_bytes, smem_first=False, what="kernel", sm_threads=
 
 class SamplerPlan:
     """A flow's descriptor, row table, tile rows and padded weights as the
-    sampler kernel reads them, and its launch (:func:`sampler_config`);
-    raises ``ValueError`` where no launch fits."""
+    sampler kernels read them, the kernel that runs it
+    (:func:`sampler_kernel_for`) and that kernel's launch; raises
+    ``ValueError`` where no launch fits."""
 
     def __init__(self, flow):
         self.flow = flow
-        shapes = [layer_shapes(cfg) for cfg in flow.cells]
-        self.desc, self.n_weights = plan_descriptor(flow, shapes)
-        self.table = op_table(flow, shapes)
-        self.tiles = tile_rows(flow, shapes)
-        self.n_wpad = padded_weights(flow, shapes)
-        self.config = sampler_config(self)
+        self.shapes = [layer_shapes(cfg) for cfg in flow.cells]
+        self.desc, self.n_weights = plan_descriptor(flow, self.shapes)
+        self.table = op_table(flow, self.shapes)
+        self.tiles = tile_rows(flow, self.shapes)
+        self.n_wpad = padded_weights(flow, self.shapes)
+        self.copies = tiled_copies(flow, self.shapes)
+        self.kernel = sampler_kernel_for(self)
+        self.config = launch_config(self, self.kernel)
 
 
 def sampler_smem_bytes(plan, block, w_smem=True):
@@ -320,6 +343,69 @@ def sampler_config(plan):
     which reads the same layers the same way)."""
     return best_launch(SAMPLER_BLOCKS, lambda b, w: sampler_smem_bytes(plan, b, w),
                        smem_first=True, what="fused sampler")
+
+
+def tiled_copies(flow, shapes):
+    """``(wh, wl)``: the tiled sampler's copies of the weights in shared
+    memory, in floats: the largest of a cell's hidden layers, and of one
+    transformed dimension's columns of a last layer, each row padded to a
+    multiple of four floats and the bias a last row."""
+    wh = wl = 0
+    for cfg, layers in _cell_ops(flow, shapes):
+        wh = max(wh, sum((fi + 1) * round4(fo) for fi, fo, _ in layers[:-1]))
+        wl = max(wl, (layers[-1][0] + 1) * round4(logit_width(cfg)))
+    return wh, wl
+
+
+def sampler_tiled_smem_bytes(plan, block, w_smem=True):
+    """Shared memory of one tiled sampler block of ``block`` threads (a tile
+    of ``block`` samples): the descriptor and the row table (padded to four
+    int32s); with ``w_smem`` the weights' copies (:func:`tiled_copies`); and
+    the X, A and B tiles of :func:`tile_rows`, a row of ``block + 4`` floats
+    per feature.  ``nf_pwquad_sampler_tiled`` refuses a launch whose count
+    differs from its own."""
+    rows_a, rows_b = plan.tiles
+    return 4 * (round4(plan.desc.size + plan.table.size) + (sum(plan.copies) if w_smem else 0)
+                + (plan.flow.n_flow + rows_a + rows_b) * (block + 4))
+
+
+def sampler_tiled_config(plan):
+    """``(block, w_smem)`` of the tiled sampler for ``plan``, by
+    :func:`best_launch` over :data:`SAMPLER_TILED_BLOCKS` with the blocks its
+    registers leave resident (:data:`SAMPLER_TILED_MIN_BLOCKS`): the
+    weights' copies in shared memory wherever a launch of them fits, even
+    at one block an SM, then the most threads resident.  One float4 of a
+    copy feeds 16 FMAs, against four loads through L1: on the 2 -> 4 plan
+    128 threads with the copies ran 1.19x faster than through L1, and on
+    create_model(2, 4, [128, 128]) one block of 128 with them 1.23x faster
+    than three blocks of 64 without (PERF.md section 6)."""
+    return best_launch(SAMPLER_TILED_BLOCKS, lambda b, w: sampler_tiled_smem_bytes(plan, b, w),
+                       smem_first=True, what="tiled sampler",
+                       sm_threads=SAMPLER_TILED_MIN_BLOCKS * SAMPLER_TILED_BLOCK, min_blocks=1)
+
+
+def sampler_kernel_for(plan):
+    """The kernel that runs ``plan``, by its widths: ``"tiled"`` where a
+    layer (a hidden layer's outputs or a last layer's inputs) is at least
+    :data:`SAMPLER_TILED_MIN_WIDTH` wide and a tiled launch fits
+    (:func:`sampler_tiled_config`); else ``"thread"``, the per-thread
+    kernel."""
+    widths = [fo if li < len(layers) - 1 else fi
+              for _, layers in _cell_ops(plan.flow, plan.shapes)
+              for li, (fi, fo, _) in enumerate(layers)]
+    if widths and max(widths) >= SAMPLER_TILED_MIN_WIDTH:
+        try:
+            sampler_tiled_config(plan)
+            return "tiled"
+        except ValueError:
+            pass
+    return "thread"
+
+
+def launch_config(plan, kernel):
+    """``(block, w_smem)`` of ``kernel`` (``"thread"`` or ``"tiled"``) on
+    ``plan``, by its launch rule; raises ``ValueError`` where none fits."""
+    return sampler_tiled_config(plan) if kernel == "tiled" else sampler_config(plan)
 
 
 def sampler_blocks(n, block):
@@ -377,12 +463,12 @@ def philox_uniform(seed: int, offset: int, n: int, n_flow: int) -> np.ndarray:
 # Sampler construction
 # ---------------------------------------------------------------------------
 
-def _launch(plan, ops, latents, seed, offset, n, dim_major, config, smem):
-    """One kernel launch on the current stream; returns ``(x, jac)``.
+def _launch(plan, ops, latents, seed, offset, n, dim_major, kernel, config, smem):
+    """One launch of ``kernel`` on the current stream; returns ``(x, jac)``.
     ``ops`` holds the descriptor, the row table and the flat weights on the
-    device; ``config = (block, w_smem)`` and ``smem`` its
-    :func:`sampler_smem_bytes`."""
-    global LAUNCHES
+    device; ``config = (block, w_smem)`` and ``smem`` its count of shared
+    memory (:func:`sampler_smem_bytes`, :func:`sampler_tiled_smem_bytes`)."""
+    global LAUNCHES, SAMPLER_TILED_LAUNCHES
     from nf_tpu_torch.ops import _build
 
     lib = _build.library()
@@ -393,23 +479,33 @@ def _launch(plan, ops, latents, seed, offset, n, dim_major, config, smem):
     x = torch.empty((n_flow, n) if dim_major else (n, n_flow),
                     dtype=torch.float32, device=device)
     jac = torch.empty(n, dtype=torch.float32, device=device)
+    lat = latents.data_ptr() if latents is not None else None
+    n_blocks = max(sampler_blocks(n, block), 1)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        err = lib.nf_pwquad_sampler(
-            desc.data_ptr(), desc.numel(), tab.data_ptr(), tab.numel(), weights.data_ptr(),
-            plan.n_wpad, latents.data_ptr() if latents is not None else None,
-            seed & ((1 << 64) - 1), offset, x.data_ptr(), jac.data_ptr(), n, n_flow,
-            max(sampler_blocks(n, block), 1), block, int(w_smem), *plan.tiles, smem,
-            int(dim_major), stream)
+        if kernel == "tiled":
+            err = lib.nf_pwquad_sampler_tiled(
+                desc.data_ptr(), desc.numel(), tab.data_ptr(), tab.numel(), weights.data_ptr(),
+                lat, seed & ((1 << 64) - 1), offset, x.data_ptr(), jac.data_ptr(), n, n_flow,
+                n_blocks, block, int(w_smem), *plan.tiles, *plan.copies, smem, int(dim_major),
+                stream)
+        else:
+            err = lib.nf_pwquad_sampler(
+                desc.data_ptr(), desc.numel(), tab.data_ptr(), tab.numel(), weights.data_ptr(),
+                plan.n_wpad, lat, seed & ((1 << 64) - 1), offset, x.data_ptr(), jac.data_ptr(),
+                n, n_flow, n_blocks, block, int(w_smem), *plan.tiles, smem, int(dim_major),
+                stream)
     if err != 0:
         raise RuntimeError(f"pwquad_sampler kernel launch failed: {_build.error_string(err)}")
     if n > 0:
         LAUNCHES += 1
+        if kernel == "tiled":
+            SAMPLER_TILED_LAUNCHES += 1
     return x, jac
 
 
 def build_sampler(flow, model, take_latents: bool = False,
-                  layout: str = "batch_major", config=None):
+                  layout: str = "batch_major", config=None, kernel=None):
     """Fused eval-mode sampler for ``model`` (a FlowModel of ``flow``).
 
     Returns ``sample(seed, n, offset=0) -> (x, jac)``, or with
@@ -420,10 +516,11 @@ def build_sampler(flow, model, take_latents: bool = False,
     give disjoint streams for one seed.
 
     The launch is planned and the weights folded, encoded and uploaded
-    once, here (the span ``nf.fold``).  On a CUDA device every
-    call launches the kernel, with ``config = (block, w_smem)`` (default
-    :func:`sampler_config`); a plan no launch fits raises ``ValueError``
-    here.  On the CPU it runs the plain version.
+    once, here (the span ``nf.fold``).  On a CUDA device every call launches
+    ``kernel`` (``"thread"`` or ``"tiled"``; default the plan's,
+    :func:`sampler_kernel_for`) with ``config = (block, w_smem)`` (default
+    its launch rule's); a plan no launch fits raises ``ValueError`` here.
+    Both kernels give the same bits.  On the CPU it runs the plain version.
     """
     from nf_tpu_torch.flows.fast_eval import make_folded_forward
 
@@ -435,11 +532,16 @@ def build_sampler(flow, model, take_latents: bool = False,
     if device.type == "cuda":
         with profiling.span("nf.fold"):
             plan = SamplerPlan(flow)
-            config = config or plan.config
-            if config[0] not in SAMPLER_BLOCKS + SMALL_BLOCKS:
-                raise ValueError(f"sampler block {config[0]} not in "
-                                 f"{SAMPLER_BLOCKS + SMALL_BLOCKS}")
-            smem = sampler_smem_bytes(plan, *config)
+            kernel = kernel or plan.kernel
+            if kernel not in ("thread", "tiled"):
+                raise ValueError(f"unknown sampler kernel {kernel!r}")
+            tiled = kernel == "tiled"
+            config = config or (plan.config if kernel == plan.kernel
+                                else launch_config(plan, kernel))
+            blocks = (SAMPLER_TILED_BLOCKS if tiled else SAMPLER_BLOCKS) + SMALL_BLOCKS
+            if config[0] not in blocks:
+                raise ValueError(f"{kernel} sampler block {config[0]} not in {blocks}")
+            smem = (sampler_tiled_smem_bytes if tiled else sampler_smem_bytes)(plan, *config)
             desc, weights = encode_plan(flow, fold_eval_params(flow, model))
             ops = tuple(torch.as_tensor(a, device=device) for a in (desc, plan.table, weights))
     elif device.type == "cpu":
@@ -449,7 +551,7 @@ def build_sampler(flow, model, take_latents: bool = False,
 
     def run(latents, seed, offset, n):
         if device.type == "cuda":
-            return _launch(plan, ops, latents, seed, offset, n, dim_major, config, smem)
+            return _launch(plan, ops, latents, seed, offset, n, dim_major, kernel, config, smem)
         if latents is None:
             latents = torch.from_numpy(philox_uniform(seed, offset, n, n_flow))
         x, jac = plain(latents)

@@ -18,9 +18,17 @@ Run from the root of a checkout, on a machine with an NVIDIA GPU:
         digests: the same bits), the flagship stale epoch and the camel-2D
         trainers' epochs at batch 10000, one JSON line; with ``--trainers``
         the trainers only
+    python3 nf_tpu_torch/tools/kernel_timing.py sampler [--tree DIR]
+        the seeded dim-major sampler on the plans of SAMPLER_PLANS at their
+        sizes (camel-2D, the 10-D flagship, the zz4l 2 -> 4 plan, the ZZ/Z'
+        plan, create_model(2, 4, [128, 128])): its default launch and, in a
+        tree that has the tiled kernel, each kernel forced, CUDA events and
+        device time, with the outputs' digests; one JSON line
     python3 nf_tpu_torch/tools/kernel_timing.py pair DIR_A DIR_B DIR_B DIR_A [--trainers]
-        ``time`` for each tree in turn, each in its own process (each builds
-        its own kernel library), on the same card; one JSON line per tree
+    python3 nf_tpu_torch/tools/kernel_timing.py pair DIR_A DIR_B DIR_B DIR_A --sampler
+        ``time`` (or ``sampler``) for each tree in turn, each in its own
+        process (each builds its own kernel library), on the same card; one
+        JSON line per tree
     python3 nf_tpu_torch/tools/kernel_timing.py sweep [--tree DIR]
         the training backward, the forward with and without stats, and the
         sampler, at each of the tree's launch configurations for that kernel
@@ -202,6 +210,64 @@ def _models(torch, dev):
     for model in models.values():
         _perturb(torch, model, gen, dev)
     return models, gen
+
+
+# The sampler's plans for ``sampler``: (builder arguments, keywords, samples
+# a launch).  zz4l is the benchmark's 2 -> 4 plan (n_flow 10, 32 bins,
+# hidden [32, 32]), zz_zprime examples/zz_multichannel.py's (n_flow 11, 16
+# bins, [32, 32], rank 4).
+SAMPLER_PLANS = {
+    "camel2d": ((2, 2, 4, (3, 3, 3)), {}, 1 << 21),
+    "flagship10d_rank4": ((10, 8, 8, (16, 16)), {"final_rank": 4}, 1 << 21),
+    "zz4l": ((10, 4, 32, (32, 32)), {}, 1 << 21),
+    "zz_zprime": ((11, 4, 16, (32, 32)), {"final_rank": 4}, 1 << 20),
+    "wide128": ((2, 2, 4, (128, 128)), {}, 1 << 21),
+}
+
+
+def sampler_tree(tree):
+    """The seeded dim-major sampler (as ``integrate`` calls it) on each plan
+    of :data:`SAMPLER_PLANS` in ``tree``: its default launch, and each
+    kernel forced where the tree has a choice of kernel; every model from a
+    generator of its own seed, so two trees time the same work."""
+    sys.path.insert(0, os.path.abspath(tree))
+    import torch
+    import nf_tpu_torch
+    from nf_tpu_torch.flows import factory
+    from nf_tpu_torch.ops import pwquad_sampler as ps
+
+    dev = torch.device("cuda")
+    out = {"tree": tree, "package": os.path.dirname(nf_tpu_torch.__file__), "card": card()}
+    kernels = ("thread", "tiled") if hasattr(ps, "sampler_kernel_for") else ()
+    for seed, (name, (args, kw, n)) in enumerate(SAMPLER_PLANS.items()):
+        gen = torch.Generator(device=dev).manual_seed(100 + seed)
+        model = _perturb(torch, factory.build_pwquad_flow(gen, *args, device=dev, **kw), gen, dev)
+        flow = model.flow
+        plan = ps.SamplerPlan(flow)
+        row = {"n": n, "config": plan.config, "kernel": getattr(plan, "kernel", "thread")}
+        runs = {"default": ps.build_sampler(flow, model, layout="dim_major")}
+        for kernel in kernels:
+            try:
+                runs[kernel] = ps.build_sampler(flow, model, layout="dim_major", kernel=kernel)
+            except ValueError:
+                continue
+        for key, run in runs.items():
+            row[key + "_digest"] = digest(*run(7, n))
+            row[key + "_ms"] = time_ms(lambda: run(7, n))
+            row[key + "_device_ms"] = device_ms(lambda: run(7, n))
+        # every tiled launch that fits, the launch rule's candidates
+        for block in getattr(ps, "SAMPLER_TILED_BLOCKS", ()) if "tiled" in runs else ():
+            for w_smem in (True, False):
+                if ps.sampler_tiled_smem_bytes(plan, block, w_smem) > ps.SMEM_LIMIT:
+                    continue
+                run = ps.build_sampler(flow, model, layout="dim_major", kernel="tiled",
+                                       config=(block, w_smem))
+                key = f"tiled_block{block}_{'wsmem' if w_smem else 'wl1'}"
+                row[key + "_digest"] = digest(*run(7, n))
+                row[key + "_device_ms"] = device_ms(lambda: run(7, n))
+        out[name] = row
+    print(json.dumps(out), flush=True)
+    return 0
 
 
 def time_tree(tree, trainers_only=False):
@@ -386,11 +452,13 @@ def sweep(tree):
 
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    parser.add_argument("mode", choices=("ptxas", "build", "time", "pair", "sweep"))
+    parser.add_argument("mode", choices=("ptxas", "build", "time", "sampler", "pair", "sweep"))
     parser.add_argument("trees", nargs="*")
     parser.add_argument("--tree", default=ROOT)
     parser.add_argument("--trainers", action="store_true",
                         help="time and pair: the trainers only, no kernel timings")
+    parser.add_argument("--sampler", action="store_true",
+                        help="pair: the sampler mode for each tree")
     args = parser.parse_args()
     if args.mode == "ptxas":
         return ptxas(args.tree)
@@ -403,11 +471,14 @@ def main():
         return 1
     if args.mode == "time":
         return time_tree(args.tree, args.trainers)
+    if args.mode == "sampler":
+        return sampler_tree(args.tree)
     if args.mode == "sweep":
         return sweep(args.tree)
     rc = 0
     for tree in args.trees:
-        rc |= subprocess.run([sys.executable, os.path.abspath(__file__), "time",
+        mode = "sampler" if args.sampler else "time"
+        rc |= subprocess.run([sys.executable, os.path.abspath(__file__), mode,
                               "--tree", tree] + ["--trainers"] * args.trainers).returncode
     return rc
 

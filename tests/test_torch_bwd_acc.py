@@ -66,9 +66,12 @@ def test_zz_plan_backward_launch_with_the_accumulator_in_device_memory():
     assert wh + wl < plan.n_weights // 25
     plan.descriptor("cpu")
     assert plan.bwd_config == (128, True) and plan.bwd_kernel == "tiled" and plan.bwd_ws == 0
-    # the forward and the sampler fit this plan as they are
+    # the forward and the per-thread sampler fit this plan as they are; the
+    # sampler runs its tiled kernel here
     assert plan.fwd_config[False] == (256, False)
-    assert ps.SamplerPlan(plan.flow).config == (256, False)
+    splan = ps.SamplerPlan(plan.flow)
+    assert ps.sampler_config(splan) == (256, False)
+    assert (splan.kernel, splan.config) == ("tiled", (128, True))
 
 
 @pytest.mark.parametrize("args,kw,config", [

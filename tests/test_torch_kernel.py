@@ -50,13 +50,27 @@ OVER_CAPS = ["pwquad_bins40_hidden96", "pwquad_flow36_narrow", "pwquad_wide128"]
 # the plans whose last layer takes more inputs than the tiled backward's
 # register tiles hold: they run the workspace backward
 WORKSPACE = ["pwquad_bins40_hidden96", "pwquad_wide128"]
+# Plans for the tiled sampler, beside the wide plans above: the zz4l
+# configuration's 2 -> 4 plan (n_flow 10, 32 bins, hidden [32, 32]), the
+# ZZ/Z' plan of examples/zz_multichannel.py (n_flow 11, 16 bins, [32, 32],
+# rank 4) and wide pwlin and affine plans.
+TILED_FLOWS = {
+    "pwquad_zz4l": lambda g, d: factory.build_pwquad_flow(g, 10, 4, 32, (32, 32), device=d),
+    "pwquad_zz_zprime": lambda g, d: factory.build_pwquad_flow(g, 11, 4, 16, (32, 32), device=d,
+                                                               final_rank=4),
+    "pwlin_wide": lambda g, d: factory.build_pwlin_flow(g, 3, 1, 3, 8, (32, 32), 1, device=d),
+    "affine_wide": lambda g, d: factory.build_affine_flow(g, 3, 1, 2, (32, 32), 1, device=d),
+}
+# every plan the tiled sampler runs here
+TILED = sorted(TILED_FLOWS) + ["pwquad_bins40_hidden96", "pwquad_max_hidden_rank",
+                               "pwquad_wide128"]
 
 
 def _model(name, device="cpu"):
     """A flow of ``name`` with BatchNorm statistics and scales moved off
     their init values, so the fold is not trivial."""
     gen = torch.Generator(device=device).manual_seed(len(name))
-    model = FLOWS[name](gen, device)
+    model = {**FLOWS, **TILED_FLOWS}[name](gen, device)
     with torch.no_grad():
         for key, t in list(model.named_buffers()) + list(model.named_parameters()):
             if key.endswith("mean"):
@@ -116,16 +130,19 @@ def test_wrapper_rejects_bad_input():
 ])
 def test_plans_over_the_old_caps_get_a_launch(n_flow, n_bins, nn):
     """Plans nf_tpu's kernels take, which the port's kernels once refused,
-    are encoded and given a launch by the sampler and by both training
-    kernels; the backward runs the tiled kernel, or the per-thread kernel on
-    its workspace where a last layer takes more inputs than the tiled
-    kernel's register tiles hold."""
+    are encoded and given a launch by the sampler (its tiled kernel where a
+    layer is 32 wide or more) and by both training kernels; the backward
+    runs the tiled kernel, or the per-thread kernel on its workspace where a
+    last layer takes more inputs than the tiled kernel's register tiles
+    hold."""
     model = factory.build_pwquad_flow(torch.Generator().manual_seed(0), n_flow, 2, n_bins, nn)
     desc, weights = ps.encode_plan(model.flow, ps.fold_eval_params(model.flow, model))
     plan = ps.SamplerPlan(model.flow)
     assert np.array_equal(plan.desc, desc) and plan.n_weights == weights.size
     block, w_smem = plan.config
-    assert ps.sampler_smem_bytes(plan, block, w_smem) <= ps.SMEM_LIMIT
+    count = ps.sampler_tiled_smem_bytes if plan.kernel == "tiled" else ps.sampler_smem_bytes
+    assert plan.kernel == ("tiled" if max(nn) >= ps.SAMPLER_TILED_MIN_WIDTH else "thread")
+    assert count(plan, block, w_smem) <= ps.SMEM_LIMIT
     tplan = pt.TrainPlan(model.flow)
     assert torch.equal(tplan.descriptor("cpu"), torch.as_tensor(desc))
     for stats, (block, w_smem) in tplan.fwd_config.items():
@@ -253,10 +270,10 @@ def _sampler_config(plan, w_smem):
 @pytest.mark.parametrize("w_smem", [True, False])
 @pytest.mark.parametrize("name", ["pwquad_camel", "pwquad_masked_rank"] + OVER_CAPS)
 def test_sampler_at_scale_both_layouts_and_placements(cuda, name, w_smem):
-    """n = 2^21 + 333 with a counter offset: each thread of the grid takes
-    two or three tiles, the last one ragged.  Both variants in both
-    layouts against the plain version, with the weights in shared memory
-    and through L1; two launches bit-identical."""
+    """The per-thread kernel at n = 2^21 + 333 with a counter offset: each
+    thread of the grid takes two or three tiles, the last one ragged.  Both
+    variants in both layouts against the plain version, with the weights in
+    shared memory and through L1; two launches bit-identical."""
     model = _model(name, cuda)
     flow = model.flow
     config = _sampler_config(ps.SamplerPlan(flow), w_smem)
@@ -267,8 +284,9 @@ def test_sampler_at_scale_both_layouts_and_placements(cuda, name, w_smem):
     w = torch.from_numpy(ps.philox_uniform(3, offset, n, flow.n_flow)).to(cuda)
     x_p, jac_p = plain(w)
     for layout in ("batch_major", "dim_major"):
-        seeded = ps.build_sampler(flow, model, layout=layout, config=config)
-        latents = ps.build_sampler(flow, model, take_latents=True, layout=layout, config=config)
+        seeded = ps.build_sampler(flow, model, layout=layout, config=config, kernel="thread")
+        latents = ps.build_sampler(flow, model, take_latents=True, layout=layout, config=config,
+                                   kernel="thread")
         for run in (lambda: seeded(3, n, offset=offset), lambda: latents(w)):
             x, jac = run()
             again = run()
@@ -289,6 +307,141 @@ def test_sampler_refuses_a_wrong_smem_count(cuda, monkeypatch):
     with pytest.raises(RuntimeError, match="kernel launch failed"):
         ps.build_sampler(model.flow, model)(1, 100)
     assert ps.LAUNCHES == launches
+
+
+def _tiled_configs(plan):
+    """Every launch of the tiled sampler that fits ``plan``."""
+    return [(b, w) for b in ps.SAMPLER_TILED_BLOCKS for w in (True, False)
+            if ps.sampler_tiled_smem_bytes(plan, b, w) <= ps.SMEM_LIMIT]
+
+
+def _both_kernels(flow, model, layout, w, n, seed, offset, config=None):
+    """The tiled and the per-thread kernels' outputs, both variants:
+    ``{kernel: (x_seeded, jac_seeded, x_latents, jac_latents)}``."""
+    out = {}
+    for kernel, cfg in (("tiled", config), ("thread", None)):
+        seeded = ps.build_sampler(flow, model, layout=layout, config=cfg, kernel=kernel)
+        latents = ps.build_sampler(flow, model, take_latents=True, layout=layout, config=cfg,
+                                   kernel=kernel)
+        out[kernel] = (*seeded(seed, n, offset=offset), *latents(w))
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 127, 129, 4099])
+@pytest.mark.parametrize("name", TILED)
+def test_tiled_sampler_equals_the_per_thread_kernel(cuda, name, n):
+    """On the plans the tiled kernel runs, its x and jac equal the
+    per-thread kernel's bit for bit: the Philox variant and the latents
+    operand, dim-major and batch-major, at every tiled launch that fits
+    (blocks of 128 and 64, the copies in shared memory or the weights
+    through L1), n at and around a block's edge."""
+    model = _model(name, cuda)
+    flow = model.flow
+    plan = ps.SamplerPlan(flow)
+    assert plan.kernel == "tiled"
+    w = _latents(n, flow.n_flow, cuda)
+    for config in _tiled_configs(plan):
+        for layout in ("batch_major", "dim_major"):
+            out = _both_kernels(flow, model, layout, w, n, 5, 1 << 33, config)
+            for a, b in zip(out["tiled"], out["thread"]):
+                assert torch.equal(a, b), (config, layout)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["pwquad_zz4l", "pwquad_zz_zprime"])
+def test_tiled_sampler_grid_stride_passes(cuda, name):
+    """n = 2^21 + 333 with a counter offset: each block of the grid takes
+    two or three tiles, the last one ragged.  The tiled kernel equals the
+    per-thread one bit for bit in both variants and layouts, and holds the
+    gate against the plain version; two launches bit-identical."""
+    model = _model(name, cuda)
+    flow = model.flow
+    plain = make_folded_forward(flow, model)
+    n, offset = (1 << 21) + 333, 7 << 21
+    w = torch.from_numpy(ps.philox_uniform(3, offset, n, flow.n_flow)).to(cuda)
+    x_p, jac_p = plain(w)
+    for layout in ("batch_major", "dim_major"):
+        out = _both_kernels(flow, model, layout, w, n, 3, offset)
+        for a, b in zip(out["tiled"], out["thread"]):
+            assert torch.equal(a, b), layout
+        again = _both_kernels(flow, model, layout, w, n, 3, offset)["tiled"]
+        assert all(torch.equal(a, b) for a, b in zip(again, out["tiled"]))
+        for x, jac in (out["tiled"][:2], out["tiled"][2:]):
+            x = x.T if layout == "dim_major" else x
+            torch.testing.assert_close(x, x_p, rtol=1e-4, atol=2e-5)
+            torch.testing.assert_close(jac, jac_p, rtol=1e-3, atol=0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(TILED_FLOWS))
+def test_tiled_sampler_matches_plain_version(cuda, name):
+    """The tiled kernel against the plain version at the gate the
+    per-thread kernel holds (test_kernel_matches_plain_version)."""
+    model = _model(name, cuda)
+    flow = model.flow
+    plain = make_folded_forward(flow, model)
+    w = _latents(4099, flow.n_flow, cuda)
+    x_k, jac_k = ps.build_sampler(flow, model, take_latents=True)(w)
+    x_p, jac_p = plain(w)
+    torch.testing.assert_close(x_k, x_p, rtol=1e-4, atol=2e-5)
+    torch.testing.assert_close(jac_k, jac_p, rtol=1e-3, atol=0)
+
+
+@pytest.mark.cuda
+def test_sampler_counts_tiled_launches(cuda):
+    """Every launch counts in LAUNCHES, and the tiled kernel's also in
+    SAMPLER_TILED_LAUNCHES: the zz4l and ZZ/Z' plans launch it, camel and
+    the 10-D flagship (pwquad_masked_rank) the per-thread kernel; an empty
+    launch counts nothing."""
+    for name, tiled in (("pwquad_zz4l", 1), ("pwquad_zz_zprime", 1), ("pwquad_camel", 0),
+                        ("pwquad_masked_rank", 0)):
+        model = _model(name, cuda)
+        w = _latents(1000, model.flow.n_flow, cuda)
+        before = (ps.LAUNCHES, ps.SAMPLER_TILED_LAUNCHES)
+        ps.build_sampler(model.flow, model)(1, 1000)
+        ps.build_sampler(model.flow, model, take_latents=True, layout="dim_major")(w)
+        ps.build_sampler(model.flow, model)(1, 0)
+        assert (ps.LAUNCHES, ps.SAMPLER_TILED_LAUNCHES) == (before[0] + 2,
+                                                            before[1] + 2 * tiled), name
+
+
+@pytest.mark.cuda
+def test_tiled_sampler_refuses_a_wrong_smem_count(cuda, monkeypatch):
+    """nf_pwquad_sampler_tiled refuses a launch whose shared-memory count
+    differs from its own; the wrapper raises, and nothing falls back."""
+    model = _model("pwquad_zz_zprime", cuda)
+    count = ps.sampler_tiled_smem_bytes
+    monkeypatch.setattr(ps, "sampler_tiled_smem_bytes", lambda *a: count(*a) + 4)
+    launches = (ps.LAUNCHES, ps.SAMPLER_TILED_LAUNCHES)
+    with pytest.raises(RuntimeError, match="kernel launch failed"):
+        ps.build_sampler(model.flow, model)(1, 100)
+    assert (ps.LAUNCHES, ps.SAMPLER_TILED_LAUNCHES) == launches
+
+
+@pytest.mark.cuda
+def test_tiled_sampler_residency_is_the_occupancy_calculators(cuda):
+    """The blocks an SM the launch rule counts for the tiled sampler (by
+    shared memory, and by the registers its launch bound leaves) are the
+    CUDA occupancy calculator's for the compiled kernel where shared memory
+    sets them, and never more, at every block size and place of the
+    weights."""
+    from nf_tpu_torch.ops import _build
+    lib = _build.library()
+    threads = ps.SAMPLER_TILED_MIN_BLOCKS * ps.SAMPLER_TILED_BLOCK
+    for name in TILED:
+        plan = ps.SamplerPlan(_model(name, cuda).flow)
+        for block, w_smem in _tiled_configs(plan):
+            smem = ps.sampler_tiled_smem_bytes(plan, block, w_smem)
+            got = ctypes.c_int(-1)
+            with torch.cuda.device(cuda):
+                err = lib.nf_pwquad_sampler_tiled_occupancy(int(w_smem), block, smem,
+                                                            ctypes.byref(got))
+            assert err == 0, _build.error_string(err)
+            counted = ps.blocks_per_sm(smem, block, threads)
+            assert counted <= got.value, (name, block, w_smem)
+            if ps.blocks_per_sm(smem, block) <= threads // block:
+                assert counted == got.value, (name, block, w_smem)
 
 
 @pytest.mark.cuda
